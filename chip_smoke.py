@@ -8,20 +8,30 @@ Phases, in order; each raises on failure, and the script then exits non-zero:
 1. device: a CUDA card is required; the run never falls back to the CPU.
 2. build: ``nvcc`` builds every kernel of ``montage_gan_tpu_torch/csrc/`` for
    ``sm_90a``, one process per source, all started together.
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the sampling path's shapes and at odd ones, with TF32 off.  Times are the
-   median of 20 runs after warm-up, from CUDA events.
-4. slice: the full-width config ``aio`` sampling path (mapping -> 9 synthesis
+3. kernels: K1' bias_act and K2' upfirdn2d against their plain PyTorch
+   versions on the card, at the main paths' shapes and at odd ones, with TF32
+   off.  Times are the median of 20 runs after warm-up, from CUDA events.
+4. warp: K3' against the plain warp (upsample, then gather) at the training
+   path's main shape and geometries, the adjoint identity of K4' and K4'
+   against the plain version's gradient.
+5. grads: the K1' gradient kernel (orders 1 and 2, float32 and bfloat16)
+   and K2''s backward against autograd of the plain versions.
+6. slice: the full-width config ``aio`` sampling path (mapping -> 9 synthesis
    nets -> STN -> alpha composite) at batch 8 through ``build_inference_fn``,
-   with seeded random weights.  Every kernel launch count is set to 0 just
-   before that run and read just after; each must equal what the path
-   implies.
-5. cross-device: a micro ensemble on the CPU (plain versions) and on the card
-   (kernels) with the same weights; ``placed`` and ``img`` must agree.
+   with seeded random weights, and its exact launch counts.
+7. cross-device: a micro ensemble sampled on the CPU (plain versions) and on
+   the card (kernels) with the same weights.
+8. train: 5 steps of the full-width local-phase training step (9 local Gs
+   and Ds, the ADA pipe, Gmain/Greg/Dmain/Dr1, Adam, EMA, ADA) at batch 8
+   through ``MontageTrainer``, with seeded weights and synthetic reals, and
+   the exact launch counts of all five kernels over the 5 steps.
+9. train cross-device: the four local losses and their gradients on a micro
+   ensemble, CPU (plain) against the card (kernels), same weights and draws.
 
-Its last two lines are the card's name and power limit (from ``nvidia-smi``)
-and one JSON object, ``{"ok": true, "device": {...}}``; the line before them
-is ``{"kernels": [...]}``.
+Each main path (6 and 8) is driven with every launch count set to 0 just
+before it and read just after.  The last two lines are the card's name and
+power limit (from ``nvidia-smi``) and one JSON object, ``{"ok": true,
+"device": {...}}``; the line before them is ``{"kernels": [...]}``.
 """
 
 import copy
@@ -47,6 +57,24 @@ TOL_BF16 = dict(rtol=1.6e-2, atol=1e-5)
 # Card against CPU on the float32 micro ensemble: convolutions sum in another
 # order (TF32 is off), as in tests/test_torch_slice.py.
 TOL_CROSS = dict(rtol=0.0, atol=1e-4)
+# The warp: the same taps and weights, summed in another order (the plain
+# version builds the upsample first); inputs are O(1).
+TOL_WARP = dict(rtol=1e-5, atol=1e-5)
+# Training losses and gradients, card against CPU, float32: the losses
+# within 1e-4; every gradient entry within 1e-3 of the phase's largest
+# gradient entry.  The scale is the phase's, not each tensor's: R1's bias
+# gradients are small next to the phase's others and ill-conditioned
+# (through a leaky ReLU network the input gradient is piecewise constant in
+# the biases).  The run prints the CPU's own spread when its weights move
+# by 1e-6 relative beside the card's error.
+TOL_TRAIN_LOSS = 1e-4
+TOL_TRAIN_GRAD = 1e-3
+
+# H100 SXM peaks for the bounds (NVIDIA's data sheet): HBM3 bytes/s and
+# float32 FLOP/s outside the tensor cores.
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+TRAIN_STEPS = 5
 
 MICRO = dict(layer_names=('a', 'b', 'c'),
              layer_targets=((32, 32), (32, 32), (16, 8)),
@@ -85,6 +113,25 @@ def median_ms(fn, iters=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(nbytes, flops):
+    """(least ms, what bounds it): bytes over the memory rate against
+    float32 operations over the peak rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def backward_ms(out, inp, cotangent):
+    """Median time of autograd's backward alone through an already built
+    graph (the plain version of a backward kernel)."""
+    import torch
+    return median_ms(lambda: torch.autograd.grad(out, inp, cotangent,
+                                                 retain_graph=True))
 
 
 def compare(label, kernel_fn, plain_fn, tol, timed=False):
@@ -185,6 +232,226 @@ def phase_upfirdn2d(dev, card):
     return main
 
 
+def library_upsample_ms(dev):
+    """The yardstick of K2' at its main shape: one depthwise
+    ``F.conv_transpose2d`` (stride 2, padding 1) computes the same upsample
+    (checked here); the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    from montage_gan_tpu_torch.ops import filters
+    from montage_gan_tpu_torch.ops import upfirdn2d as up
+    x = torch.randn(8, 128, 128, 4, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    f2d = filters.setup_filter([1, 3, 3, 1], device=dev)
+    w = (f2d * 4.0)[None, None].repeat(4, 1, 1, 1)
+    xc = x.permute(0, 3, 1, 2)
+
+    def lib():
+        return F.conv_transpose2d(xc, w, stride=2, padding=1, groups=4)
+    ref = up.upfirdn2d_cuda(x, f2d, up=2, padding=[2, 1, 2, 1], gain=4.0)
+    torch.testing.assert_close(lib().permute(0, 2, 3, 1), ref, **TOL_F32_FIR)
+    ms = median_ms(lib)
+    log(f'  library: depthwise conv_transpose2d {ms:.4f} ms (same upsample)')
+    return ms
+
+
+def phase_warp(dev, card):
+    """K3' against the plain warp, K4''s adjoint identity and K4' against
+    the plain version's gradient, at the training path's shapes."""
+    import torch
+    from montage_gan_tpu_torch.ops import affine_warp as aw
+    from montage_gan_tpu_torch.training import augment as aug
+    from montage_gan_tpu_torch.training.draws import Draws
+
+    log(f'[warp] K3\' forward, K4\' transpose  card: {card}')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    cfg = aug.make_augment_config('bgcfnc')
+    taps = aug._HZ_GEOM.to(dev)
+    out = {}
+
+    def thetas(kind, n, h, w):
+        if kind == 'sampled':        # the pipe's own law at p = aug_p_max
+            theta, ph, pw, oh, ow = aug.sample_warp_theta(
+                Draws(gen), 0.6, cfg, n, h, w, device=dev)
+            return theta.contiguous(), ph, pw, oh, ow
+        _, _, _, ph, pw, oh, ow = aug._warp_geometry(cfg, h, w)
+        theta = torch.eye(2, 3, device=dev).repeat(n, 1, 1)
+        if kind == 'off_plane':
+            theta = theta * 1.3
+            theta[:, :, 2] = torch.tensor([0.7, -0.6], device=dev)
+        return theta.contiguous(), ph, pw, oh, ow
+
+    for kind, n, (h, w) in (('sampled', 16, (256, 256)),
+                            ('sampled', 16, (64, 32)),
+                            ('identity', 16, (64, 32)),
+                            ('off_plane', 16, (256, 256))):
+        main = kind == 'sampled' and h == 256
+        theta, ph, pw, oh, ow = thetas(kind, n, h, w)
+        x = torch.rand(n, ph, pw, 4, device=dev, generator=gen) * 2 - 1
+        g = torch.randn(n, oh, ow, 4, device=dev, generator=gen)
+        label = f'[{n},{ph},{pw},4] -> [{n},{oh},{ow},4] {kind}'
+        fwd = compare(f'K3\' {label}',
+                      lambda: aw.warp_forward_cuda(x, theta, oh, ow, 2, taps),
+                      lambda: aw.affine_warp_ref(x, theta, oh, ow, 2, taps),
+                      TOL_WARP, timed=main)
+        # the adjoint identity <K3 x, g> = <x, K4 g>, in float64 sums
+        y = aw.warp_forward_cuda(x, theta, oh, ow, 2, taps)
+        dx = aw.warp_transpose_cuda(g, theta, ph, pw, 2, taps)
+        lhs = (y.double() * g.double()).sum().item()
+        rhs = (x.double() * dx.double()).sum().item()
+        rel = abs(lhs - rhs) / max(abs(lhs), 1e-30)
+        if not rel <= 1e-5:
+            raise AssertionError(f'K4\' {label}: <K3 x, g> = {lhs}, '
+                                 f'<x, K4 g> = {rhs}, relative {rel:.3g}')
+        log(f'  ok  K4\' {label}: adjoint identity relative error {rel:.3g}'
+            ' (limit 1e-5)')
+        # K4' against autograd of the plain version
+        xr = x.clone().requires_grad_(True)
+        yr = aw.affine_warp_ref(xr, theta, oh, ow, 2, taps)
+        ref, = torch.autograd.grad(yr, xr, g, retain_graph=True)
+        err = (dx - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        torch.testing.assert_close(dx, ref, rtol=1e-5, atol=1e-5 * scale,
+                                   msg=lambda m: f'K4\' {label}: {m}')
+        line = f'  ok  K4\' {label}: max_abs_err {err:.3g} ' \
+            f'(rtol 1e-5, atol {1e-5 * scale:.3g})'
+        if main:
+            t_ms = median_ms(lambda: aw.warp_transpose_cuda(g, theta, ph, pw,
+                                                            2, taps))
+            t_plain = backward_ms(yr, xr, g)
+            line += f'  kernel {t_ms:.4f} ms  plain (autograd backward) ' \
+                f'{t_plain:.4f} ms'
+            flops = 2 * 49 * n * oh * ow * 4        # <= 7x7 taps per output
+            out['warp_forward'] = (fwd[0], fwd[1], fwd[2],
+                                   *bound(nbytes(x, y), flops), None)
+            out['warp_transpose'] = (err, t_ms, t_plain,
+                                     *bound(nbytes(g, dx), flops), None)
+            log(f'  bound at the main shape: {out["warp_forward"][3]:.4f} ms '
+                f'({out["warp_forward"][4]}; {nbytes(x, y) / 1e6:.1f} MB, '
+                f'{flops / 1e9:.2f} GFLOP)  card: {card}')
+        log(line)
+    return out
+
+
+def phase_grads(dev, card):
+    """The K1' gradient kernel, orders 1 and 2, and K2''s backward, against
+    autograd of the plain versions."""
+    import torch
+    from montage_gan_tpu_torch.ops import bias_act as ba
+    from montage_gan_tpu_torch.ops import filters
+    from montage_gan_tpu_torch.ops import upfirdn2d as up
+
+    log(f'[grads] K1\' grad (orders 1, 2), K2\' backward  card: {card}')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen)
+                * scale).to(dtype)
+
+    def orders(fn, x, b):
+        """Order 1 of <fn(x, b)^2, r> and order 2 (<grad_x, s>)."""
+        x = x.clone().requires_grad_(True)
+        b = b.clone().requires_grad_(True)
+        out = fn(x, b)
+        r = torch.ones_like(out, dtype=torch.float32)
+        g1 = torch.autograd.grad((out.float().square() * r).sum(), (x, b),
+                                 create_graph=True)
+        g2 = torch.autograd.grad((g1[0].float()).sum(), (x, b),
+                                 allow_unused=True)
+        return [t for t in g1 + g2 if t is not None]
+
+    def case(label, x, b, tol, **kw):
+        ref = orders(lambda x, b: ba.bias_act_ref(x, b, **kw), x, b)
+        got = orders(lambda x, b: ba.bias_act(x, b, **kw), x, b)
+        if x.dtype == torch.float32:
+            err = 0.0
+            for a, r in zip(got, ref):
+                err = max(err, (a - r).abs().max().item())
+                torch.testing.assert_close(a, r, **tol,
+                                           msg=lambda m: f'{label}: {m}')
+            log(f'  ok  {label} orders 1, 2: max_abs_err {err:.3g} '
+                f'(rtol {tol["rtol"]}, atol {tol["atol"]})')
+            return
+        # bfloat16: the plain version rounds at every step and its order-2
+        # sums cancel, so both are held to the float32 truth: the kernels no
+        # further from it than twice the plain version, plus 1e-2 of the
+        # tensor's largest entry.
+        truth = orders(lambda x, b: ba.bias_act_ref(x, b, **kw), x.float(), b)
+        worst = 0.0
+        for a, r, t in zip(got, ref, truth):
+            dk = (a.float() - t).abs().max().item()
+            dp = (r.float() - t).abs().max().item()
+            limit = 2 * dp + 1e-2 * t.abs().max().item()
+            if not dk <= limit:
+                raise AssertionError(f'{label}: kernels {dk:.3g} from the '
+                                     f'float32 truth, plain {dp:.3g}')
+            worst = max(worst, dk / max(limit, 1e-30))
+        log(f'  ok  {label} orders 1, 2: against the float32 truth at most '
+            f'{worst:.3g} of the limit (2x plain + 1e-2 of max)')
+
+    # order 1 of the main path's epilogue, timed: g * gain * lrelu'(y) masked
+    x = randn(8, 256, 256, 64, dtype=torch.bfloat16, scale=3.0)
+    b = randn(64)
+    kw = dict(act='lrelu', gain=math.sqrt(2), clamp=256.0)
+    xr = x.clone().requires_grad_(True)
+    yr = ba.bias_act_ref(xr, b, **kw)
+    y = ba.bias_act_cuda(x, b, **kw)
+    dy = randn(8, 256, 256, 64, dtype=torch.bfloat16)
+    main = compare('[8,256,256,64] bf16 lrelu order 1 (dy, y -> dx)',
+                   lambda: ba.bias_act_grad_cuda(dy, None, None, y, **kw),
+                   lambda: torch.autograd.grad(yr, xr, dy,
+                                               retain_graph=True)[0],
+                   TOL_BF16)
+    t_ms = median_ms(lambda: ba.bias_act_grad_cuda(dy, None, None, y, **kw))
+    t_plain = backward_ms(yr, xr, dy)
+    log(f'  [8,256,256,64] bf16 order 1: kernel {t_ms:.4f} ms  plain '
+        f'(autograd backward) {t_plain:.4f} ms  card: {card}')
+    out = {'bias_act_grad': (main[0], t_ms, t_plain,
+                             *bound(nbytes(dy, y, dy), 4 * dy.numel()),
+                             None)}
+    for dtype, tol in ((torch.float32, dict(rtol=1e-5, atol=1e-5)),
+                       (torch.bfloat16, None)):
+        name = 'f32' if dtype == torch.float32 else 'bf16'
+        case(f'[8,256,256,64] {name} lrelu clamp 256',
+             randn(8, 256, 256, 64, dtype=dtype, scale=3.0), randn(64), tol,
+             act='lrelu', gain=math.sqrt(2), clamp=256.0)
+        case(f'[8,512] {name} lrelu (mapping FC)', randn(8, 512, dtype=dtype),
+             randn(512), tol, act='lrelu')
+        for act in sorted(ba.activation_funcs):
+            case(f'[3,5,7,16] {name} {act} clamp 1.5',
+                 randn(3, 5, 7, 16, dtype=dtype, scale=2.0), randn(16), tol,
+                 act=act, clamp=1.5 if dtype == torch.float32 else None)
+        case(f'[8,256,256,64] {name} swish (act\'\' != 0)',
+             randn(8, 256, 256, 64, dtype=dtype), randn(64), tol, act='swish')
+
+    # K2' backward: K2' with transposed parameters
+    f2d = filters.setup_filter([1, 3, 3, 1], device=dev)
+    f1d = filters.setup_filter([1, 2, 3, 4, 4, 3, 2, 1], device=dev)
+    for label, shape, f, kw in (
+            ('[8,128,128,4] upsample2d 4x4', (8, 128, 128, 4), f2d,
+             dict(up=2, padding=[2, 1, 2, 1], gain=4.0)),
+            ('[3,17,13,5] down 2 pad 1', (3, 17, 13, 5), f2d,
+             dict(down=2, padding=1)),
+            ('[2,9,11,3] 1-D up [2,1] down [1,2] flip', (2, 9, 11, 3), f1d,
+             dict(up=[2, 1], down=[1, 2], padding=[3, 4, -1, 2],
+                  flip_filter=True))):
+        x = randn(*shape)
+        xr = x.clone().requires_grad_(True)
+        yr = up.upfirdn2d_ref(xr, f, **kw)
+        g = torch.randn_like(yr)
+        xk = x.clone().requires_grad_(True)
+        yk = up.upfirdn2d(xk, f, **kw)
+        got = compare(f'K2\' backward {label}',
+                      lambda: torch.autograd.grad(yk, xk, g,
+                                                  retain_graph=True)[0],
+                      lambda: torch.autograd.grad(yr, xr, g,
+                                                  retain_graph=True)[0],
+                      TOL_F32_FIR)
+        if shape[1] == 128:
+            out['upfirdn2d_backward'] = got
+    return out
+
+
 def expected_launches(model):
     """Launches one sampling call makes: one bias_act per FullyConnected,
     SynthesisLayer and ToRGBLayer forward; one upfirdn2d (the ToRGB skip
@@ -196,6 +463,64 @@ def expected_launches(model):
              for m in model.modules())
     k2 = sum(len(net.block_resolutions) - 1 for net in model.local_g)
     return {'bias_act': k1, 'upfirdn2d': k2}
+
+
+def expected_train_launches(model, hyper, steps):
+    """Launches of ``steps`` local-phase training steps from step 0, per
+    kernel, from the module structure.  Per layer (G: S synthesis layers, T
+    ToRGBs, A style affines, B blocks; D: nD bias_act layers, Lb of them in
+    the blocks; M mapping FCs, twice with style mixing):
+
+    * K1' forward: one per bias_act a forward runs.  Gmain M + G + D;
+      Greg M + G; Dmain M + G + 2 D (fakes and reals apart); Dr1 D.
+    * K1' grad: one per backward of a bias_act whose activation is not the
+      identity (the affines and D's last FC are linear with gain 1, no
+      clamp: their backward is the identity).  Gmain: D (nD - 1), G (S + T),
+      M.  Greg: inner grad S + T; outer: each synthesis layer's order-1 node
+      (S) and forward node (S: the style gradient reads its output), and M.
+      The ToRGBs' inner nodes see the constant path-length noise and record
+      nothing.  Dmain: 2 (nD - 1).  Dr1: inner nD - 1, outer nD - 1 for the
+      order-1 nodes and Lb for the block layers' forward nodes (the
+      minibatch-std's gradient reads the blocks' output).
+    * K2' (forward and backward): B - 1 per G forward; Gmain's backward
+      B - 1; Greg's inner grad B - 1 (its outer pass reads none).
+    * K3': the augmented forward in Gmain (B), Dmain (2B) and Dr1, and the
+      backward of K4' in Dr1's outer pass.  K4': Gmain's backward and Dr1's
+      inner grad."""
+    from montage_gan_tpu_torch.models.layers import (Conv2dLayer,
+                                                     FullyConnected)
+    from montage_gan_tpu_torch.models.synthesis import (SynthesisLayer,
+                                                        ToRGBLayer)
+
+    def count(module, kinds):
+        return sum(isinstance(m, kinds) for m in module.modules())
+
+    aug = hyper.augment if not hyper.local_noaug else None
+    warp = int(aug is not None and (aug.any_blit or aug.any_geom))
+    m = model.mapping.num_layers * (2 if hyper.style_mixing_prob > 0 else 1)
+    out = dict.fromkeys(('bias_act', 'bias_act_grad', 'upfirdn2d',
+                         'warp_forward', 'warp_transpose'), 0)
+    for step in range(steps):
+        greg = int(hyper.g_reg_interval is not None and hyper.pl_weight != 0
+                   and step % hyper.g_reg_interval == 0)
+        dr1 = int(hyper.d_reg_interval is not None and hyper.r1_gamma != 0
+                  and step % hyper.d_reg_interval == 0)
+        for g, d in zip(model.local_g, model.local_d):
+            s, t = count(g, SynthesisLayer), count(g, ToRGBLayer)
+            n_g = s + t + count(g, FullyConnected)
+            blocks = len(g.block_resolutions)
+            n_d = count(d, (Conv2dLayer, FullyConnected))
+            lb = sum(count(b, Conv2dLayer) for b in d.blocks())
+            out['bias_act'] += ((m + n_g + n_d) + greg * (m + n_g)
+                                + (m + n_g + 2 * n_d) + dr1 * n_d)
+            out['bias_act_grad'] += ((n_d - 1 + s + t + m)
+                                     + greg * (3 * s + t + m)
+                                     + 2 * (n_d - 1)
+                                     + dr1 * (2 * (n_d - 1) + lb))
+            out['upfirdn2d'] += (blocks - 1) * (2 + 2 * greg + 1)
+            out['warp_forward'] += warp * (2 + 2 * dr1)
+            out['warp_transpose'] += warp * (1 + dr1)
+    return out
 
 
 def seed_z(seeds, z_dim):
@@ -324,6 +649,199 @@ def phase_cross_device(device='cuda'):
             f'(atol {TOL_CROSS["atol"]})')
 
 
+def train_setup(cfg, hyper, device, seed=SEED):
+    """A trainer with seeded weights, and synthetic reals as the local Ds
+    take them: per-layer centred crops in [-1, 1]."""
+    import numpy as np
+    from montage_gan_tpu_torch.data.synthetic import synthetic_batch
+    from montage_gan_tpu_torch.models.ensemble import MontageEnsemble
+    from montage_gan_tpu_torch.training.train_step import MontageTrainer
+    from montage_gan_tpu_torch.utils.image_utils import \
+        make_batch_for_local_d_np
+    model = MontageEnsemble(cfg, with_d=True)
+    trainer = MontageTrainer(model, hyper, device=device)
+    state = trainer.init_state(seed)
+    stack01 = synthetic_batch(np.random.RandomState(seed), hyper.batch_size,
+                              cfg.num_layers, cfg.base_resolution)
+    crops = make_batch_for_local_d_np(stack01, cfg.layer_targets,
+                                      to_minus11=True)
+    return trainer, state, stack01 * 2.0 - 1.0, crops
+
+
+def phase_train(card, kernels, cfg, device='cuda'):
+    """5 full-width local-phase steps at batch 8: step 0 runs all four
+    phases, step 4 Greg again, and the ADA controller fires after step 3."""
+    import torch
+    from montage_gan_tpu_torch.training.augment import make_augment_config
+    from montage_gan_tpu_torch.training.train_step import TrainHyper
+
+    hyper = TrainHyper(batch_size=BATCH, train_global=False,
+                       train_renderer=False,
+                       augment=make_augment_config('bgcfnc'),
+                       augment_p_init=0.6)
+    log(f'[train] config aio local phases (train_global=False): '
+        f'{cfg.num_layers} local G/D pairs, batch {BATCH}, augment bgcfnc at '
+        f'p {hyper.augment_p_init}, g_reg every {hyper.g_reg_interval}, '
+        f'd_reg every {hyper.d_reg_interval}, ADA every {hyper.ada_interval}')
+    t0 = time.perf_counter()
+    trainer, state, stack, crops = train_setup(cfg, hyper, device)
+    model = trainer.ens
+    n_params = sum(p.numel() for p in model.parameters())
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    crops = [torch.from_numpy(c).to(device) for c in crops]
+    log(f'  init {time.perf_counter() - t0:.1f} s, {n_params} parameters '
+        f'(G side and {cfg.num_layers} local Ds)')
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    times = []
+    for step in range(TRAIN_STEPS):
+        phases = ['Gmain'] + (['Greg'] if step % hyper.g_reg_interval == 0
+                              else []) + ['Dmain'] + (
+            ['Dr1'] if step % hyper.d_reg_interval == 0 else [])
+        t0 = time.perf_counter()
+        state, stats = trainer.train_step(state, stack, crops, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        bad = [k for k, v in stats.items() if not torch.isfinite(v).all()]
+        if bad:
+            raise AssertionError(f'step {step}: non-finite stats {bad}')
+        first = cfg.layer_names[0]
+        log(f'  step {step}: {times[-1] * 1e3:.1f} ms, phases '
+            f'{"+".join(phases)} per layer, {first} G loss '
+            f'{stats[f"{first}/Loss/G/loss"].item():.4f} D loss '
+            f'{stats[f"{first}/Loss/D/loss"].item():.4f}')
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    expect = expected_train_launches(model, hyper, TRAIN_STEPS)
+    log(f'  launches over {TRAIN_STEPS} steps {launches}, expected {expect}')
+    for name, n in launches.items():
+        if n == 0 or n != expect[name]:
+            raise AssertionError(f'{name}: {n} launches on the training path, '
+                                 f'expected {expect[name]}')
+    still = [k for k, v in model.named_parameters()
+             if torch.equal(v.detach(), before[k])]
+    if still:
+        raise AssertionError(f'{len(still)} parameters did not move: '
+                             f'{still[:5]}')
+    if state.step != TRAIN_STEPS or not torch.isfinite(state.pl_mean).all():
+        raise AssertionError(f'state after the steps: step {state.step}, '
+                             f'pl_mean {state.pl_mean}')
+    mid = statistics.median(times[1:4])
+    log(f'  every parameter moved; aug_p {state.aug_p.tolist()}, pl_mean '
+        f'{[round(v, 4) for v in state.pl_mean.tolist()]}')
+    log(f'  steps 1-3 (Gmain+Dmain): median {mid * 1e3:.1f} ms, '
+        f'{BATCH / mid:.2f} images/s; peak memory {peak / 2**30:.2f} GiB  '
+        f'card: {card}')
+    return launches
+
+
+def cpu_draws(seed, device):
+    """Draws made on one CPU generator and moved to ``device``: the same
+    numbers for a CPU run and a card run."""
+    import torch
+    from montage_gan_tpu_torch.training.draws import Draws
+
+    class CpuDraws(Draws):
+        def normal(self, shape, kind):
+            return super().normal(shape, kind).to(device)
+
+        def uniform(self, shape, kind):
+            return super().uniform(shape, kind).to(device)
+    return CpuDraws(torch.Generator().manual_seed(seed))
+
+
+def phase_train_cross_device(device='cuda'):
+    """The four local losses and their gradients on a float32 micro
+    ensemble: CPU (plain versions) against the card (kernels)."""
+    import torch
+    from montage_gan_tpu_torch.models.ensemble import MontageConfig
+    from montage_gan_tpu_torch.training import losses
+    from montage_gan_tpu_torch.training.augment import make_augment_config
+    from montage_gan_tpu_torch.training.train_step import TrainHyper
+
+    cfg = MontageConfig(**{**MICRO, 'train_global': False,
+                           'mbstd_group_size': 2})
+    hyper = TrainHyper(batch_size=4, train_global=False, train_renderer=False,
+                       augment=make_augment_config('bgcfnc'))
+    log(f'[train cross-device] micro ensemble {cfg.layer_targets}, float32, '
+        'augment bgcfnc at p 0.6: CPU (plain) against card (kernels)')
+    trainer, _, _, crops = train_setup(cfg, hyper, 'cpu', seed=SEED + 6)
+    cpu = trainer.ens
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():     # zero-init terms do work
+            if name.endswith(('bias', 'noise_strength')):
+                p.add_(torch.randn(p.shape, generator=torch.Generator()
+                                   .manual_seed(len(name))) * 0.1)
+    card = copy.deepcopy(cpu).to(device)
+    layer = 2                                     # the non-square one
+    z = torch.randn(4, cfg.z_dim, generator=torch.Generator().manual_seed(7))
+    real = torch.from_numpy(crops[layer])
+
+    def run(model, dev, phase):
+        draws = cpu_draws(SEED + 8, dev)
+        aug, p = hyper.augment, 0.6
+        if phase == 'Gmain':
+            loss, _ = losses.local_gmain_loss(model, layer, z.to(dev), draws,
+                                              aug, p)
+        elif phase == 'Greg':
+            loss, _, _ = losses.local_gpl_loss(model, layer, z.to(dev), draws,
+                                               torch.tensor(0.1, device=dev))
+        elif phase == 'Dmain':
+            loss, _, _ = losses.local_dmain_loss(model, layer, z.to(dev),
+                                                 real.to(dev), draws, aug, p)
+        else:
+            loss, _, _ = losses.local_dr1_loss(model, layer, real.to(dev),
+                                               draws, aug, p)
+        params = (list(model.local_d[layer].parameters())
+                  if phase.startswith('D') else
+                  list(model.mapping.parameters())
+                  + list(model.local_g[layer].parameters()))
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return loss.detach().cpu(), [None if g is None else g.cpu()
+                                     for g in grads]
+
+    # the CPU against itself with every weight moved by 1e-6 relative: the
+    # float32 spread of each phase's gradients
+    nudged = copy.deepcopy(cpu)
+    with torch.no_grad():
+        for i, p in enumerate(nudged.parameters()):
+            p.mul_(1 + 1e-6 * torch.randn(
+                p.shape, generator=torch.Generator().manual_seed(i)))
+
+    def spread(grads, ref_grads):
+        """(largest entry difference, worst tensor) over the phase's
+        gradients, relative to the phase's largest entry."""
+        # autograd gives None where the other path may give structural zeros
+        pairs = [(i, torch.zeros_like(r) if g is None else g,
+                  torch.zeros_like(g) if r is None else r)
+                 for i, (g, r) in enumerate(zip(grads, ref_grads))
+                 if g is not None or r is not None]
+        scale = max(max(r.abs().max().item() for _, _, r in pairs), 1e-12)
+        errs = [((g - r).abs().max().item() / scale, i) for i, g, r in pairs]
+        return max(errs)
+
+    for phase in ('Gmain', 'Greg', 'Dmain', 'Dr1'):
+        ref_loss, ref_grads = run(cpu, 'cpu', phase)
+        loss, grads = run(card, device, phase)
+        if not abs(loss.item() - ref_loss.item()) <= TOL_TRAIN_LOSS:
+            raise AssertionError(f'{phase}: loss {loss.item()} on the card, '
+                                 f'{ref_loss.item()} on the CPU')
+        worst, at = spread(grads, ref_grads)
+        floor, _ = spread(run(nudged, 'cpu', phase)[1], ref_grads)
+        if not worst <= TOL_TRAIN_GRAD:
+            raise AssertionError(f'{phase}: gradient {at} differs by '
+                                 f'{worst:.3g} of the phase\'s largest entry')
+        log(f'  ok  {phase}: loss {loss.item():.6f} (CPU {ref_loss.item():.6f},'
+            f' atol {TOL_TRAIN_LOSS}); gradients within {worst:.3g} of the '
+            f'phase\'s largest entry (limit {TOL_TRAIN_GRAD}; CPU with '
+            f'weights moved 1e-6: {floor:.3g})')
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, 'montage_gan_tpu_torch', 'csrc')):
         sys.exit('chip_smoke.py: montage_gan_tpu_torch/ is not beside this '
@@ -335,7 +853,7 @@ def main():
 
     from montage_gan_tpu_torch import set_fp32_precision
     from montage_gan_tpu_torch.models.ensemble import MontageConfig
-    from montage_gan_tpu_torch.ops import bias_act, cuda, upfirdn2d
+    from montage_gan_tpu_torch.ops import affine_warp, bias_act, cuda, upfirdn2d
 
     set_fp32_precision()
     card = card_line()
@@ -352,21 +870,47 @@ def main():
             if 'registers' in line or 'spill' in line:
                 log(f'  {name}: {line.strip()}')
 
-    kernels = {'bias_act': bias_act.kernel, 'upfirdn2d': upfirdn2d.kernel}
-    checks = {'bias_act': phase_bias_act('cuda', card),
-              'upfirdn2d': phase_upfirdn2d('cuda', card)}
-    launches = phase_slice(card, kernels, MontageConfig())
-    phase_cross_device()
+    kernels = {'bias_act': bias_act.kernel,
+               'bias_act_grad': bias_act.grad_kernel,
+               'upfirdn2d': upfirdn2d.kernel,
+               'warp_forward': affine_warp.forward_kernel,
+               'warp_transpose': affine_warp.transpose_kernel}
+    # (max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms) at the
+    # main path's shape
+    k1 = phase_bias_act('cuda', card)
+    x = torch.empty(8, 256, 256, 64, dtype=torch.bfloat16)
+    checks = {'bias_act': (*k1, *bound(2 * nbytes(x), 5 * x.numel()), None)}
+    k2 = phase_upfirdn2d('cuda', card)
+    x = torch.empty(8, 128, 128, 4)
+    checks['upfirdn2d'] = (*k2, *bound(5 * nbytes(x), 8 * 4 * x.numel()),
+                           library_upsample_ms('cuda'))
+    checks.update(phase_warp('cuda', card))
+    grads = phase_grads('cuda', card)
+    checks['bias_act_grad'] = grads['bias_act_grad']
 
-    sources = {'bias_act': ('montage_gan_tpu_torch/csrc/bias_act.cu',
-                            'montage_gan_tpu/ops/pallas/bias_act_kernel.py:39'),
-               'upfirdn2d': ('montage_gan_tpu_torch/csrc/upfirdn2d.cu',
-                             'montage_gan_tpu/ops/pallas/upfirdn2d_kernel.py:222')}
-    log(json.dumps({'kernels': [
-        {'name': name, 'route': 'cuda', 'source': sources[name][0],
-         'replaces': sources[name][1], 'launches': launches[name],
-         'max_abs_err': checks[name][0], 'ms': checks[name][1],
-         'plain_ms': checks[name][2]} for name in kernels]}))
+    slice_kernels = {k: kernels[k] for k in ('bias_act', 'upfirdn2d')}
+    phase_slice(card, slice_kernels, MontageConfig())
+    phase_cross_device()
+    launches = phase_train(card, kernels, MontageConfig(train_global=False))
+    phase_train_cross_device()
+
+    sources = {
+        'bias_act': ('bias_act.cu', 'bias_act_kernel.py:39'),
+        'bias_act_grad': ('bias_act.cu', 'bias_act_kernel.py:39'),
+        'upfirdn2d': ('upfirdn2d.cu', 'upfirdn2d_kernel.py:222'),
+        'warp_forward': ('warp.cu', 'warp_kernel.py:274'),
+        'warp_transpose': ('warp.cu', 'warp_kernel.py:384')}
+    rows = []
+    for name in kernels:
+        err, ms, plain, bound_ms, bound_by, lib = checks[name]
+        src, rep = sources[name]
+        rows.append({'name': name, 'route': 'cuda',
+                     'source': f'montage_gan_tpu_torch/csrc/{src}',
+                     'replaces': f'montage_gan_tpu/ops/pallas/{rep}',
+                     'launches': launches[name], 'max_abs_err': err,
+                     'ms': ms, 'plain_ms': plain, 'bound_ms': bound_ms,
+                     'bound_by': bound_by, 'library_ms': lib})
+    log(json.dumps({'kernels': rows}))
     log(card_line())
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -27,6 +27,14 @@ struct alignas(sizeof(T) * VEC) MgtVec {
     T v[VEC];
 };
 
+// A float32 value rounded to the storage type T (host side), e.g. a clamp
+// bound: in bfloat16 the reference clamps at the bound as that type holds it.
+template <typename T> static inline float mgt_round_to(float v);
+template <> inline float mgt_round_to<float>(float v) { return v; }
+template <> inline float mgt_round_to<__nv_bfloat16>(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 static inline bool mgt_aligned(const void* p, size_t bytes) {
     return (reinterpret_cast<uintptr_t>(p) % bytes) == 0;
 }

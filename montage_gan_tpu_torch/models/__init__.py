@@ -1,2 +1,2 @@
-"""Networks of the port (generator side): mapping, synthesis, STN and the
+"""Networks of the port: mapping, synthesis, STN, discriminator and the
 ensemble that composes them."""

@@ -1,10 +1,9 @@
-"""The MontageGAN ensemble, generator side: shared mapping → L local synthesis
-nets → STN placement → alpha composite.
+"""The MontageGAN ensemble: shared mapping → L local synthesis nets → STN
+placement → alpha composite, and the L local discriminators.
 
-Port of the G side of ``montage_gan_tpu/models/ensemble.py``.  The renderer,
-the local Ds and the global D come with later slices; ``MontageConfig``
-keeps all the JAX package's fields so its snapshots' configs load as they
-are.
+Port of ``montage_gan_tpu/models/ensemble.py``.  The renderer and the global
+D come with later slices; ``MontageConfig`` keeps all the JAX package's
+fields so its snapshots' configs load as they are.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ from ..ops.composite import alpha_composite
 from ..utils.calc_res import calc_init_res
 from ..utils.image_utils import (make_batch_for_pos_estimator,
                                  normalize_minus11, normalize_zero1)
+from .discriminator import Discriminator
 from .mapping import GlobalMappingNetwork, MappingNetwork
 from .stn import STN
 from .synthesis import SynthesisNetwork
@@ -41,13 +41,13 @@ class MontageConfig:
     z_dim: int = 512
     w_dim: int = 512
     c_dim: int = 0
-    freeze_d_layers: int = 0     # D side, not ported yet
+    freeze_d_layers: int = 0
     mapping_num_layers: int = 8
     channel_base: int = 16384
     channel_max: int = 512
     num_fp16_res: int = 4
     conv_clamp: Optional[float] = 256
-    mbstd_group_size: int = 4    # D side, not ported yet
+    mbstd_group_size: int = 4
     use_global_mapping: bool = True
     train_global: bool = True
     renderer_type: str = 'tanh'  # 'tanh' | 'subpixel' | 'none'; not ported yet
@@ -72,12 +72,14 @@ class MontageConfig:
 
 
 class MontageEnsemble(nn.Module):
-    """Generator-side modules: ``mapping``, ``local_g[i]``, ``stn``."""
+    """``mapping``, ``local_g[i]``, ``stn`` and, with ``with_d`` (training),
+    ``local_d[i]``: one ``Discriminator`` per layer, at the layer's
+    geometry."""
 
-    def __init__(self, cfg: MontageConfig):
+    def __init__(self, cfg: MontageConfig, with_d: bool = False):
         super().__init__()
         self.cfg = cfg
-        local_g = []
+        local_g, local_d = [], []
         for i in range(cfg.num_layers):
             init_res, res = cfg.layer_geometry(i)
             local_g.append(SynthesisNetwork(
@@ -86,6 +88,17 @@ class MontageEnsemble(nn.Module):
                 conv_config_index=cfg.conv_config_index,
                 channel_base=cfg.channel_base, channel_max=cfg.channel_max,
                 num_fp16_res=cfg.num_fp16_res, conv_clamp=cfg.conv_clamp))
+            if with_d:
+                local_d.append(Discriminator(
+                    img_resolution=res, img_channels=cfg.img_channels,
+                    c_dim=cfg.c_dim, init_res=init_res,
+                    conv_config_index=cfg.conv_config_index,
+                    channel_base=cfg.channel_base,
+                    channel_max=cfg.channel_max,
+                    num_fp16_res=cfg.num_fp16_res,
+                    conv_clamp=cfg.conv_clamp,
+                    mbstd_group_size=cfg.mbstd_group_size,
+                    freeze_layers=cfg.freeze_d_layers))
         self.num_ws = max(g.num_ws for g in local_g)
         if cfg.use_global_mapping:
             self.mapping = GlobalMappingNetwork(
@@ -97,6 +110,7 @@ class MontageEnsemble(nn.Module):
                 z_dim=cfg.z_dim, c_dim=cfg.c_dim, w_dim=cfg.w_dim,
                 num_ws=self.num_ws, num_layers=cfg.mapping_num_layers)
         self.local_g = nn.ModuleList(local_g)
+        self.local_d = nn.ModuleList(local_d) if with_d else None
         self.stn = None
         if cfg.train_global:
             self.stn = STN(img_resolution=cfg.base_resolution,
@@ -107,12 +121,14 @@ class MontageEnsemble(nn.Module):
     def init_weights(self, seed: int) -> 'MontageEnsemble':
         """Re-initialise every weight from one seeded generator, with the
         JAX package's initializers (N(0, 1)/lr for equalized-LR layers, unit
-        normal noise_const, flax's lecun normal for the STN, zeros for the
-        STN's last FC)."""
+        normal noise_const, zero or constant biases, flax's lecun normal for
+        the STN, zeros for the STN's last FC)."""
         g = torch.Generator().manual_seed(seed)
         with torch.no_grad():
             self.mapping.reset_parameters(g)
             for net in self.local_g:
+                net.reset_parameters(g)
+            for net in self.local_d or ():
                 net.reset_parameters(g)
             if self.stn is not None:
                 self.stn.reset_parameters(g)

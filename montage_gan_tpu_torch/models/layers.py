@@ -63,11 +63,13 @@ class Conv2dLayer(nn.Module):
                  use_bias: bool = True, activation: str = 'linear',
                  up: int = 1, down: int = 1,
                  resample_filter: Sequence[int] = (1, 3, 3, 1),
-                 conv_clamp: Optional[float] = None):
+                 conv_clamp: Optional[float] = None, trainable: bool = True):
         super().__init__()
         self.activation = activation
         self.up, self.down = up, down
         self.conv_clamp = conv_clamp
+        self.trainable = trainable   # False: no gradient reaches the weights
+
         self.padding = kernel_size // 2
         self.weight_gain = 1.0 / math.sqrt(in_channels * kernel_size ** 2)
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
@@ -83,11 +85,40 @@ class Conv2dLayer(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
-        w = (self.weight * self.weight_gain).to(x.dtype)
+        weight, bias = self.weight, self.bias
+        if not self.trainable:        # Freeze-D: JAX's stop_gradient
+            weight = weight.detach()
+            bias = bias.detach() if bias is not None else None
+        w = (weight * self.weight_gain).to(x.dtype)
         x = conv2d_resample(x, w, f=self.resample_filter, up=self.up,
                             down=self.down, padding=self.padding,
                             flip_weight=(self.up == 1))
         act_gain = activation_funcs[self.activation].def_gain * gain
         act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
-        return bias_act(x, self.bias, act=self.activation, gain=act_gain,
+        return bias_act(x, bias, act=self.activation, gain=act_gain,
                         clamp=act_clamp)
+
+
+class MinibatchStd(nn.Module):
+    """Minibatch standard-deviation feature channel
+    (``montage_gan_tpu/models/layers.py:97-118``).  Groups are strided over
+    the batch axis: sample ``n`` is in group ``n % (N / G)``."""
+
+    def __init__(self, group_size: Optional[int] = 4, num_channels: int = 1):
+        super().__init__()
+        self.group_size = group_size
+        self.num_channels = num_channels
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, h, w, c = x.shape
+        g = min(self.group_size, n) if self.group_size is not None else n
+        if n % g != 0:
+            raise ValueError(f'batch {n} not divisible by mbstd group {g}')
+        f = self.num_channels
+        y = x.float().reshape(g, -1, h, w, f, c // f)
+        y = y - y.mean(dim=0, keepdim=True)
+        y = y.square().mean(dim=0)                     # [n/g, h, w, f, cc]
+        y = (y + 1e-8).sqrt()
+        y = y.mean(dim=(1, 2, 4))                      # [n/g, f]
+        y = y.reshape(1, -1, 1, 1, f).repeat(g, 1, h, w, 1).reshape(n, h, w, f)
+        return torch.cat([x, y.to(x.dtype)], dim=-1)

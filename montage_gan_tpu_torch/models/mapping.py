@@ -3,8 +3,8 @@
 Port of ``montage_gan_tpu/models/mapping.py``.  ``GlobalMappingNetwork`` is
 the MontageGAN addition: the final FC widens to ``w_dim * num_splits`` and
 the output becomes ``[B, L, num_ws, w_dim]`` — one style stack per image
-layer from a single z.  ``w_avg`` (the truncation centre) is a buffer; its
-training-time update comes with the training port.
+layer from a single z.  ``w_avg`` (the truncation centre) is a buffer, moved
+by ``forward(..., update_w_avg=True)`` in training.
 """
 
 from __future__ import annotations
@@ -23,12 +23,14 @@ class MappingNetwork(nn.Module):
     def __init__(self, z_dim: int = 512, w_dim: int = 512, num_ws: int = 1,
                  c_dim: int = 0, num_layers: int = 8,
                  layer_features: Optional[int] = None,
-                 activation: str = 'lrelu', lr_multiplier: float = 0.01):
+                 activation: str = 'lrelu', lr_multiplier: float = 0.01,
+                 w_avg_beta: float = 0.995):
         super().__init__()
         if c_dim != 0:
             raise NotImplementedError('conditional mapping (c_dim > 0) is not '
                                       'ported yet')
         self.z_dim, self.w_dim, self.num_ws = z_dim, w_dim, num_ws
+        self.w_avg_beta = w_avg_beta
         out_dim = self._out_dim()
         layer_features = layer_features or w_dim
         features = [z_dim] + [layer_features] * (num_layers - 1) + [out_dim]
@@ -47,14 +49,20 @@ class MappingNetwork(nn.Module):
             getattr(self, f'fc{idx}').reset_parameters(generator)
         self.w_avg.zero_()
 
-    def forward(self, z: torch.Tensor,
-                truncation_psi: float = 1.0) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, truncation_psi: float = 1.0,
+                update_w_avg: bool = False) -> torch.Tensor:
         """z ``[B, z_dim]`` → ``[B, num_ws, w_dim]``, pulled towards
-        ``w_avg`` by ``truncation_psi``."""
+        ``w_avg`` by ``truncation_psi``.  ``update_w_avg`` (training) first
+        moves ``w_avg`` in place: ``β·w_avg + (1 − β)·mean(w)`` over the
+        batch, β = ``w_avg_beta``."""
         assert z.shape[-1] == self.z_dim
         x = normalize_2nd_moment(z.float())
         for idx in range(self.num_layers):
             x = getattr(self, f'fc{idx}')(x)
+        if update_w_avg:
+            with torch.no_grad():
+                self.w_avg.copy_(self.w_avg_beta * self.w_avg
+                                 + (1.0 - self.w_avg_beta) * x.mean(dim=0))
         x = x[:, None, :].repeat(1, self.num_ws, 1)
         if truncation_psi != 1:
             x = self.w_avg + truncation_psi * (x - self.w_avg)
@@ -71,8 +79,8 @@ class GlobalMappingNetwork(MappingNetwork):
     def _out_dim(self) -> int:
         return self.w_dim * self.num_splits
 
-    def forward(self, z: torch.Tensor,
-                truncation_psi: float = 1.0) -> torch.Tensor:
-        x = super().forward(z, truncation_psi)
+    def forward(self, z: torch.Tensor, truncation_psi: float = 1.0,
+                update_w_avg: bool = False) -> torch.Tensor:
+        x = super().forward(z, truncation_psi, update_w_avg)
         x = x.reshape(x.shape[0], self.num_ws, self.num_splits, self.w_dim)
         return x.transpose(1, 2)  # [B, L, num_ws, w_dim]

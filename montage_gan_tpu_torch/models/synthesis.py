@@ -5,7 +5,8 @@ ensemble uses): a block at nominal resolution ``r`` has spatial extent
 ``(r·init_res[0] / 2^cci, r·init_res[1] / 2^cci)`` and the pyramid spans
 ``r = 2^cci .. img_resolution``.  The top ``num_fp16_res`` resolutions run in
 bfloat16; ToRGB accumulates in float32.  Random noise comes from an explicit
-``torch.Generator``.  Activations are NHWC.
+``torch.Generator``, or from a training step's ``Draws``
+(``training/losses.py``), passed as ``generator``.  Activations are NHWC.
 """
 
 from __future__ import annotations
@@ -85,8 +86,12 @@ class SynthesisLayer(nn.Module):
         styles = self.affine(w)
         noise = None
         if self.use_noise and noise_mode == 'random':
-            noise = torch.randn(x.shape[0], *self.out_hw, 1, device=x.device,
-                                generator=generator) * self.noise_strength
+            shape = (x.shape[0], *self.out_hw, 1)
+            if generator is None or isinstance(generator, torch.Generator):
+                noise = torch.randn(shape, device=x.device, generator=generator)
+            else:   # a training step's draws (training/losses.py::Draws)
+                noise = generator.normal(shape, 'synthesis_noise')
+            noise = noise * self.noise_strength
         elif self.use_noise and noise_mode == 'const':
             noise = (self.noise_const * self.noise_strength)[None, :, :, None]
         x = modulated_conv2d(x, self.weight, styles, noise=noise, up=self.up,

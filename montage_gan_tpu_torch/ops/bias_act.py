@@ -6,11 +6,15 @@ default gain/alpha registry.
 
 Two paths, chosen by the device of ``x``:
   * a CPU tensor takes the plain PyTorch version (``bias_act_ref``), which
-    rounds to ``x.dtype`` after each step as the JAX version does;
-  * a CUDA tensor launches kernel K1' (``csrc/bias_act.cu``), which computes
-    in float32 registers and rounds once.  It is forward-only: on a CUDA
-    tensor that requires grad the wrapper raises (the autograd Function comes
-    with the training port).
+    rounds to ``x.dtype`` after each step as the JAX version does, and is
+    differentiated by autograd;
+  * a CUDA tensor goes through the autograd Function ``_BiasActCuda``: its
+    forward launches kernel K1' (``csrc/bias_act.cu``), which computes in
+    float32 registers and rounds once; its backward launches the gradient
+    kernel (``mgt_bias_act_grad``) through ``_BiasActCudaGrad``, whose own
+    backward gives the second order (R1 and path length need it).  This is
+    the reference's ``BiasActCuda`` / ``BiasActCudaGrad`` pair.  The bias
+    gradient is the input gradient summed over the non-channel dims.
 """
 
 from __future__ import annotations
@@ -23,29 +27,31 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .cuda import CudaKernel, stream_handle
+from .cuda import CudaKernel, stream_handle, takes_plain
 
 # Activation registry (montage_gan_tpu/ops/bias_act.py:31-50); `code` is the
-# activation's number in csrc/bias_act.cu.
+# activation's number in csrc/bias_act.cu.  `ref` names the saved tensor the
+# gradient kernel reads ('x': the input, 'y': the output, '': none), and
+# `has_2nd_grad` whether act'' is non-zero, as in the reference plugin.
+def _spec(func, def_alpha, def_gain, code, ref, has_2nd_grad):
+    return SimpleNamespace(func=func, def_alpha=def_alpha, def_gain=def_gain,
+                           code=code, ref=ref, has_2nd_grad=has_2nd_grad)
+
+
 activation_funcs = {
-    'linear':   SimpleNamespace(func=lambda x, **_: x, def_alpha=0.0,
-                                def_gain=1.0, code=0),
-    'relu':     SimpleNamespace(func=lambda x, **_: torch.relu(x),
-                                def_alpha=0.0, def_gain=math.sqrt(2), code=1),
-    'lrelu':    SimpleNamespace(func=lambda x, alpha, **_: F.leaky_relu(x, alpha),
-                                def_alpha=0.2, def_gain=math.sqrt(2), code=2),
-    'tanh':     SimpleNamespace(func=lambda x, **_: torch.tanh(x),
-                                def_alpha=0.0, def_gain=1.0, code=3),
-    'sigmoid':  SimpleNamespace(func=lambda x, **_: torch.sigmoid(x),
-                                def_alpha=0.0, def_gain=1.0, code=4),
-    'elu':      SimpleNamespace(func=lambda x, **_: F.elu(x),
-                                def_alpha=0.0, def_gain=1.0, code=5),
-    'selu':     SimpleNamespace(func=lambda x, **_: F.selu(x),
-                                def_alpha=0.0, def_gain=1.0, code=6),
-    'softplus': SimpleNamespace(func=lambda x, **_: F.softplus(x),
-                                def_alpha=0.0, def_gain=1.0, code=7),
-    'swish':    SimpleNamespace(func=lambda x, **_: torch.sigmoid(x) * x,
-                                def_alpha=0.0, def_gain=math.sqrt(2), code=8),
+    'linear':   _spec(lambda x, **_: x, 0.0, 1.0, 0, '', False),
+    'relu':     _spec(lambda x, **_: torch.relu(x), 0.0, math.sqrt(2), 1,
+                      'y', False),
+    'lrelu':    _spec(lambda x, alpha, **_: F.leaky_relu(x, alpha), 0.2,
+                      math.sqrt(2), 2, 'y', False),
+    'tanh':     _spec(lambda x, **_: torch.tanh(x), 0.0, 1.0, 3, 'y', True),
+    'sigmoid':  _spec(lambda x, **_: torch.sigmoid(x), 0.0, 1.0, 4, 'y',
+                      True),
+    'elu':      _spec(lambda x, **_: F.elu(x), 0.0, 1.0, 5, 'y', True),
+    'selu':     _spec(lambda x, **_: F.selu(x), 0.0, 1.0, 6, 'y', True),
+    'softplus': _spec(lambda x, **_: F.softplus(x), 0.0, 1.0, 7, 'y', True),
+    'swish':    _spec(lambda x, **_: torch.sigmoid(x) * x, 0.0, math.sqrt(2),
+                      8, 'x', True),
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -54,6 +60,10 @@ kernel = CudaKernel('bias_act', 'mgt_bias_act', [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
     ctypes.c_float, ctypes.c_void_p])
+# The gradient entry point of the same library, counted on its own.
+grad_kernel = CudaKernel('bias_act', 'mgt_bias_act_grad', [
+    ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
 
 
 def _resolve(act, alpha, gain, clamp):
@@ -91,37 +101,154 @@ def bias_act_cuda(x: torch.Tensor, b: Optional[torch.Tensor] = None,
                   dim: int = -1, act: str = 'linear',
                   alpha: Optional[float] = None, gain: Optional[float] = None,
                   clamp: Optional[float] = None) -> torch.Tensor:
-    """Kernel K1' on a CUDA tensor; raises on what the kernel does not take."""
+    """Kernel K1' forward on a CUDA tensor (no autograd); raises on what the
+    kernel does not take."""
     spec, alpha, gain = _resolve(act, alpha, gain, clamp)
-    if x.device.type != 'cuda':
-        raise ValueError(f'bias_act_cuda needs a CUDA tensor, got {x.device}')
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f'bias_act kernel takes float32 or bfloat16, got {x.dtype}')
-    if not x.is_contiguous():
-        raise ValueError('bias_act kernel needs a contiguous x')
-    if torch.is_grad_enabled() and (x.requires_grad or (
-            b is not None and b.requires_grad)):
-        raise RuntimeError('bias_act kernel is forward-only; its autograd '
-                           'Function comes with the training port')
-    channels = 1
-    if b is not None:
-        if b.ndim != 1 or dim % x.ndim != x.ndim - 1 or \
-                b.shape[0] != x.shape[-1]:
-            raise ValueError('bias_act kernel takes a [C] bias along the last '
-                             f'dim; got bias {tuple(b.shape)}, x {tuple(x.shape)}, dim {dim}')
-        if b.device != x.device:
-            raise ValueError(f'bias on {b.device}, x on {x.device}')
-        b = b.to(x.dtype).contiguous()
-        channels = b.shape[0]
+    _check(x, 'x')
+    b = _kernel_bias(x, b, dim)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    kernel.launch(x.data_ptr(), b.data_ptr() if b is not None else None,
-                  y.data_ptr(), x.numel(), channels, _DTYPE_CODES[x.dtype],
-                  spec.code, alpha, gain,
-                  -1.0 if clamp is None else float(clamp),
+    kernel.launch(x.data_ptr(), _ptr(b), y.data_ptr(), x.numel(),
+                  1 if b is None else b.shape[0], _DTYPE_CODES[x.dtype],
+                  spec.code, alpha, gain, _clamp_arg(clamp),
                   stream_handle(x.device))
     return y
+
+
+def bias_act_grad_cuda(g: torch.Tensor, x: Optional[torch.Tensor],
+                       b: Optional[torch.Tensor], y: Optional[torch.Tensor],
+                       dy: Optional[torch.Tensor] = None, order: int = 1,
+                       act: str = 'linear', alpha: Optional[float] = None,
+                       gain: Optional[float] = None,
+                       clamp: Optional[float] = None) -> torch.Tensor:
+    """The gradient kernel on CUDA tensors (no autograd): order 1 gives
+    ``g · gain · act'(x + b)`` masked where ``|y| ≥ clamp``; order 2 gives
+    ``g · dy · gain · act''(x + b)`` under the same mask.  ``x`` (with ``b``)
+    is read for swish, ``y`` for the other activations and the clamp."""
+    spec, alpha, gain = _resolve(act, alpha, gain, clamp)
+    _check(g, 'g')
+    others = {'x': x, 'y': y, 'dy': dy}
+    for name, t in others.items():
+        if t is not None:
+            _check(t, name)
+            if t.shape != g.shape or t.dtype != g.dtype:
+                raise ValueError(f'{name} {tuple(t.shape)} {t.dtype} does not '
+                                 f'match g {tuple(g.shape)} {g.dtype}')
+    b = _kernel_bias(g, b, -1)
+    out = torch.empty_like(g)
+    if g.numel() == 0:
+        return out
+    grad_kernel.launch(g.data_ptr(), _ptr(x), _ptr(b), _ptr(y), _ptr(dy),
+                       out.data_ptr(), g.numel(),
+                       1 if b is None else b.shape[0], _DTYPE_CODES[g.dtype],
+                       spec.code, order, alpha, gain, _clamp_arg(clamp),
+                       stream_handle(g.device))
+    return out
+
+
+def _check(t: torch.Tensor, name: str) -> None:
+    if t.device.type != 'cuda':
+        raise ValueError(f'bias_act kernel needs a CUDA tensor, got {name} '
+                         f'on {t.device}')
+    if t.dtype not in _DTYPE_CODES:
+        raise TypeError(f'bias_act kernel takes float32 or bfloat16, got '
+                        f'{name} {t.dtype}')
+    if not t.is_contiguous():
+        raise ValueError(f'bias_act kernel needs a contiguous {name}')
+
+
+def _kernel_bias(x: torch.Tensor, b: Optional[torch.Tensor],
+                 dim: int) -> Optional[torch.Tensor]:
+    """The bias as the kernels read it: [C] along the last dim, x's dtype."""
+    if b is None:
+        return None
+    if b.ndim != 1 or dim % x.ndim != x.ndim - 1 or b.shape[0] != x.shape[-1]:
+        raise ValueError('bias_act kernel takes a [C] bias along the last '
+                         f'dim; got bias {tuple(b.shape)}, x {tuple(x.shape)}, '
+                         f'dim {dim}')
+    if b.device != x.device:
+        raise ValueError(f'bias on {b.device}, x on {x.device}')
+    return b.detach().to(x.dtype).contiguous()
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _clamp_arg(clamp: Optional[float]) -> float:
+    return -1.0 if clamp is None else float(clamp)
+
+
+class _BiasActCuda(torch.autograd.Function):
+    """K1' forward; its backward is ``_BiasActCudaGrad`` (or the identity for
+    a linear activation with unit gain and no clamp)."""
+
+    @staticmethod
+    def forward(ctx, x, b, act, alpha, gain, clamp):
+        spec, alpha, gain = _resolve(act, alpha, gain, clamp)
+        y = bias_act_cuda(x, b, act=act, alpha=alpha, gain=gain, clamp=clamp)
+        ctx.set_materialize_grads(False)
+        ctx.params = (act, alpha, gain, clamp)
+        keep_x = spec.ref == 'x' or spec.has_2nd_grad
+        keep_y = spec.ref == 'y' or clamp is not None
+        ctx.save_for_backward(x if keep_x else None,
+                              b if keep_x else None,
+                              y if keep_y else None)
+        ctx.trivial = act == 'linear' and gain == 1 and clamp is None
+        ctx.b_dtype = None if b is None else b.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        if dy is None:
+            return (None,) * 6
+        x, b, y = ctx.saved_tensors
+        dx = dy
+        if not ctx.trivial:
+            dx = _BiasActCudaGrad.apply(dy.contiguous(), x, b,
+                                        None if y is None else y.detach(),
+                                        *ctx.params)
+        db = None
+        if ctx.needs_input_grad[1]:
+            db = dx.sum(dim=tuple(range(dx.ndim - 1))).to(ctx.b_dtype)
+        return dx, db, None, None, None, None
+
+
+class _BiasActCudaGrad(torch.autograd.Function):
+    """Order 1 of K1' (``dx`` from ``dy``); its backward gives the order-2
+    terms: ``dx`` is linear in ``dy`` (the same kernel again) and, where
+    act'' is non-zero, depends on ``x`` and ``b`` (order 2 of the kernel)."""
+
+    @staticmethod
+    def forward(ctx, dy, x, b, y, act, alpha, gain, clamp):
+        dx = bias_act_grad_cuda(dy, x, b, y, order=1, act=act, alpha=alpha,
+                                gain=gain, clamp=clamp)
+        ctx.set_materialize_grads(False)
+        ctx.params = (act, alpha, gain, clamp)
+        ctx.save_for_backward(dy, x, b, y)
+        ctx.b_dtype = None if b is None else b.dtype
+        return dx
+
+    @staticmethod
+    def backward(ctx, d_dx):
+        if d_dx is None:
+            return (None,) * 8
+        dy, x, b, y = ctx.saved_tensors
+        act = ctx.params[0]
+        d_dx = d_dx.contiguous()
+        d_dy = d_x = d_b = None
+        if ctx.needs_input_grad[0]:
+            d_dy = _BiasActCudaGrad.apply(d_dx, x, b, y, *ctx.params)
+        if activation_funcs[act].has_2nd_grad and (ctx.needs_input_grad[1]
+                                                   or ctx.needs_input_grad[2]):
+            act, alpha, gain, clamp = ctx.params
+            d_x = bias_act_grad_cuda(d_dx, x, b, y, dy.detach(), order=2,
+                                     act=act, alpha=alpha, gain=gain,
+                                     clamp=clamp)
+            if ctx.needs_input_grad[2]:
+                d_b = d_x.sum(dim=tuple(range(d_x.ndim - 1))).to(ctx.b_dtype)
+        return d_dy, d_x, d_b, None, None, None, None, None
 
 
 def bias_act(x: torch.Tensor, b: Optional[torch.Tensor] = None,
@@ -130,6 +257,8 @@ def bias_act(x: torch.Tensor, b: Optional[torch.Tensor] = None,
              clamp: Optional[float] = None) -> torch.Tensor:
     """Add bias along ``dim``, apply ``act``, scale by ``gain``, clamp to
     ±clamp.  ``dim`` defaults to -1 (channels-last)."""
-    if x.device.type == 'cpu':
+    if takes_plain(x):
         return bias_act_ref(x, b, dim, act, alpha, gain, clamp)
-    return bias_act_cuda(x, b, dim, act, alpha, gain, clamp)
+    if b is not None:
+        _kernel_bias(x, b, dim)              # raises on a bias it cannot take
+    return _BiasActCuda.apply(x.contiguous(), b, act, alpha, gain, clamp)

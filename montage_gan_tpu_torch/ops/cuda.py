@@ -27,7 +27,7 @@ CSRC_DIR = PACKAGE_DIR / 'csrc'
 BUILD_DIR = PACKAGE_DIR / 'build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
-SOURCES = ('bias_act', 'upfirdn2d')
+SOURCES = ('bias_act', 'upfirdn2d', 'warp')
 
 # name -> compiler log (ptxas register/spill report) of the builds this
 # process ran; empty for libraries that were already built.
@@ -126,6 +126,12 @@ class CudaKernel:
             msg = self._lib.mgt_error_string(rc).decode()
             raise RuntimeError(f'{self.symbol} failed: CUDA error {rc} ({msg})')
         self.launches += 1
+
+
+def takes_plain(x) -> bool:
+    """Whether an op runs its plain PyTorch version on ``x``: exactly when
+    ``x`` lies on the CPU.  A CUDA tensor launches the kernel or raises."""
+    return x.device.type == 'cpu'
 
 
 def stream_handle(device) -> int:

@@ -14,15 +14,23 @@ import torch
 
 def affine_grid(theta: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """``[N, 2, 3]`` inverse transforms → ``[N, H, W, 2]`` normalized (x, y)
-    input coordinates (align_corners=False), computed in float32."""
+    input coordinates (align_corners=False), computed in float32 as
+    ``(t0 · x + t1 · y) + t2`` per coordinate, each step rounded (the warp
+    kernel, ``csrc/warp.cu``, rounds the same steps)."""
     dev = theta.device
-    x = (2.0 * torch.arange(width, dtype=torch.float32, device=dev) + 1.0) \
-        / width - 1.0
-    y = (2.0 * torch.arange(height, dtype=torch.float32, device=dev) + 1.0) \
-        / height - 1.0
-    yy, xx = torch.meshgrid(y, x, indexing='ij')                 # [H, W]
-    base = torch.stack([xx, yy, torch.ones_like(xx)], dim=-1)    # [H, W, 3]
-    return torch.einsum('nab,ijb->nija', theta.float(), base)
+
+    def centers(n):
+        # divided by a tensor: PyTorch's CUDA division by a Python scalar
+        # multiplies by its reciprocal, which rounds otherwise than the
+        # true division of the CPU, the JAX reference and csrc/warp.cu
+        i = torch.arange(n, dtype=torch.float32, device=dev)
+        return (2.0 * i + 1.0) / torch.full((), float(n), device=dev) - 1.0
+
+    x, y = centers(width), centers(height)
+    t = theta.float()[:, None, None]                             # [N,1,1,2,3]
+    x, y = x[None, None, :], y[None, :, None]
+    return torch.stack([t[..., r, 0] * x + t[..., r, 1] * y + t[..., r, 2]
+                        for r in (0, 1)], dim=-1)
 
 
 def grid_sample(x: torch.Tensor, grid: torch.Tensor,

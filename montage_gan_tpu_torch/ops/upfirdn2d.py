@@ -7,10 +7,12 @@ Two paths, chosen by the device of ``x``:
     zero-upsampled, padded image is built explicitly and filtered by a
     depthwise ``F.conv2d``; a 1-D filter runs as two 1-D passes of
     ``sqrt(gain)`` each, as in the JAX op;
-  * a CUDA tensor launches kernel K2' (``csrc/upfirdn2d.cu``), which takes 2-D
-    and 1-D filters alike.  It is forward-only: on a CUDA tensor that
-    requires grad the wrapper raises (the op's VJP, the same op with
-    transposed parameters, comes with the training port).
+  * a CUDA tensor goes through the autograd Function ``_Upfirdn2dCuda``,
+    which launches kernel K2' (``csrc/upfirdn2d.cu``; 2-D and 1-D filters
+    alike).  The op is linear in ``x``, so its backward is K2' itself with
+    transposed parameters (``up`` and ``down`` swapped, the filter flipped,
+    the reference's transposed padding), and the backward of that is the
+    forward again: every gradient order runs the one kernel.
 
 Filters are float32 tensors from ``setup_filter`` (modules keep them as
 buffers on the device), numpy arrays, or None (identity).
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .cuda import CudaKernel, stream_handle
+from .cuda import CudaKernel, stream_handle, takes_plain
 
 IntOrPair = Union[int, Sequence[int]]
 
@@ -132,7 +134,8 @@ def upfirdn2d_ref(x: torch.Tensor, f, up: IntOrPair = 1, down: IntOrPair = 1,
 def upfirdn2d_cuda(x: torch.Tensor, f, up: IntOrPair = 1, down: IntOrPair = 1,
                    padding: IntOrPair = 0, flip_filter: bool = False,
                    gain: float = 1.0) -> torch.Tensor:
-    """Kernel K2' on a CUDA tensor; raises on what the kernel does not take."""
+    """Kernel K2' on a CUDA tensor (no autograd); raises on what the kernel
+    does not take."""
     if x.device.type != 'cuda':
         raise ValueError(f'upfirdn2d_cuda needs a CUDA tensor, got {x.device}')
     if x.ndim != 4:
@@ -141,9 +144,6 @@ def upfirdn2d_cuda(x: torch.Tensor, f, up: IntOrPair = 1, down: IntOrPair = 1,
         raise TypeError(f'upfirdn2d kernel takes float32 or bfloat16, got {x.dtype}')
     if not x.is_contiguous():
         raise ValueError('upfirdn2d kernel needs a contiguous x')
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError('upfirdn2d kernel is forward-only; its autograd '
-                           'Function comes with the training port')
     f = _as_filter(f, x.device).contiguous()
     upx, upy = _parse_scaling(up)
     downx, downy = _parse_scaling(down)
@@ -167,6 +167,37 @@ def upfirdn2d_cuda(x: torch.Tensor, f, up: IntOrPair = 1, down: IntOrPair = 1,
     return y
 
 
+class _Upfirdn2dCuda(torch.autograd.Function):
+    """K2' with its transposed self as backward (reference
+    ``torch_utils/ops/upfirdn2d.py::_upfirdn2d_cuda``; JAX
+    ``ops/pallas/upfirdn2d_kernel.py:204-219``)."""
+
+    @staticmethod
+    def forward(ctx, x, f, up, down, pad, flip_filter, gain):
+        y = upfirdn2d_cuda(x, f, up, down, pad, flip_filter, gain)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(f)
+        ctx.params = (up, down, pad, flip_filter, gain)
+        ctx.in_hw = x.shape[1:3]
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        if dy is None:
+            return (None,) * 7
+        f, = ctx.saved_tensors
+        (upx, upy), (downx, downy), (padx0, _, pady0, _), flip, gain = \
+            ctx.params
+        ih, iw = ctx.in_hw
+        oh, ow = dy.shape[1:3]
+        fh, fw = _filter_size(f)
+        pad = (fw - padx0 - 1, iw * upx - ow * downx + padx0 - upx + 1,
+               fh - pady0 - 1, ih * upy - oh * downy + pady0 - upy + 1)
+        dx = _Upfirdn2dCuda.apply(dy.contiguous(), f, (downx, downy),
+                                  (upx, upy), pad, not flip, gain)
+        return dx, None, None, None, None, None, None
+
+
 def upfirdn2d(x: torch.Tensor, f, up: IntOrPair = 1, down: IntOrPair = 1,
               padding: IntOrPair = 0, flip_filter: bool = False,
               gain: float = 1.0) -> torch.Tensor:
@@ -181,9 +212,12 @@ def upfirdn2d(x: torch.Tensor, f, up: IntOrPair = 1, down: IntOrPair = 1,
         flip_filter: False = convolution, True = correlation.
         gain: overall magnitude scaling.
     """
-    if x.device.type == 'cpu':
+    if takes_plain(x):
         return upfirdn2d_ref(x, f, up, down, padding, flip_filter, gain)
-    return upfirdn2d_cuda(x, f, up, down, padding, flip_filter, gain)
+    return _Upfirdn2dCuda.apply(
+        x.contiguous(), _as_filter(f, x.device).contiguous(),
+        _parse_scaling(up), _parse_scaling(down), _parse_padding(padding),
+        bool(flip_filter), float(gain))
 
 
 def filter2d(x: torch.Tensor, f, padding: IntOrPair = 0,
@@ -197,15 +231,24 @@ def filter2d(x: torch.Tensor, f, padding: IntOrPair = 0,
 
 
 def upsample2d(x: torch.Tensor, f, up: IntOrPair = 2, padding: IntOrPair = 0,
-               flip_filter: bool = False, gain: float = 1.0) -> torch.Tensor:
-    """Upsample with the given filter."""
+               flip_filter: bool = False, gain: float = 1.0,
+               op=None) -> torch.Tensor:
+    """Upsample with the given filter (through ``op``, by default
+    ``upfirdn2d``; ``upsample2d_ref`` passes the plain version)."""
     upx, upy = _parse_scaling(up)
     fh, fw = _filter_size(f)
     padx0, padx1, pady0, pady1 = _parse_padding(padding)
     p = [padx0 + (fw + upx - 1) // 2, padx1 + (fw - upx) // 2,
          pady0 + (fh + upy - 1) // 2, pady1 + (fh - upy) // 2]
-    return upfirdn2d(x, f, up=up, padding=p, flip_filter=flip_filter,
-                     gain=gain * upx * upy)
+    return (op or upfirdn2d)(x, f, up=up, padding=p, flip_filter=flip_filter,
+                             gain=gain * upx * upy)
+
+
+def upsample2d_ref(x: torch.Tensor, f, up: IntOrPair = 2,
+                   padding: IntOrPair = 0, flip_filter: bool = False,
+                   gain: float = 1.0) -> torch.Tensor:
+    """``upsample2d`` through the plain version, on any device."""
+    return upsample2d(x, f, up, padding, flip_filter, gain, op=upfirdn2d_ref)
 
 
 def downsample2d(x: torch.Tensor, f, down: IntOrPair = 2,

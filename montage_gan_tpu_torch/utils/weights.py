@@ -11,9 +11,9 @@ same conversion ``montage_gan_tpu/utils/torch_export.py`` makes):
   * every resample_filter buffer is ``setup_filter([1, 3, 3, 1])``.
 
 ``state_dict_from_jax`` takes the variables as nested dicts of numpy arrays
-(``mapping``, ``local_g[i]`` with ``params`` and ``noise``, ``stn``), as a
-JAX EMA snapshot holds them, and returns the state dict of
-``models.ensemble.MontageEnsemble``.
+(``mapping``, ``local_g[i]`` with ``params`` and ``noise``, ``stn``, as a
+JAX EMA snapshot holds them, and ``local_d[i]`` as a train state holds
+them), and returns the state dict of ``models.ensemble.MontageEnsemble``.
 """
 
 from __future__ import annotations
@@ -119,10 +119,51 @@ def stn_state_dict(variables: Dict[str, Any]) -> 'OrderedDict':
     return out
 
 
+def discriminator_state_dict(variables: Dict[str, Any],
+                             init_res=(4, 4)) -> 'OrderedDict':
+    """A JAX ``Discriminator``'s variables → the state dict of the port's
+    ``models.discriminator.Discriminator``: blocks top-down, then the
+    epilogue ``b4``, whose fc input turns from the HWC-major flatten to the
+    C-major one."""
+    params = variables['params']
+    if 'mapping' in params:
+        raise NotImplementedError('the conditional D is not ported yet')
+    h0, w0 = init_res
+    rf = setup_filter([1, 3, 3, 1])
+    out: 'OrderedDict' = OrderedDict()
+
+    def put_conv(key: str, p, bias: bool = True):
+        out[f'{key}.weight'] = _conv_w(p['weight'])
+        if bias:
+            out[f'{key}.bias'] = _t(p['bias'])
+        out[f'{key}.resample_filter'] = rf.clone()
+
+    blocks = sorted((b for b in params if b != 'b4'), key=lambda b: -int(b[1:]))
+    for block in blocks:
+        p = params[block]
+        out[f'{block}.resample_filter'] = rf.clone()
+        if 'fromrgb' in p:
+            put_conv(f'{block}.fromrgb', p['fromrgb'])
+        put_conv(f'{block}.conv0', p['conv0'])
+        put_conv(f'{block}.conv1', p['conv1'])
+        put_conv(f'{block}.skip', p['skip'], bias=False)
+    p = params['b4']
+    put_conv('b4.conv', p['conv'])
+    w = np.asarray(p['fc']['weight'])            # [h0*w0*cin, out], HWC-major
+    cin = w.shape[0] // (h0 * w0)
+    w = w.reshape(h0, w0, cin, -1).transpose(2, 0, 1, 3)
+    out['b4.fc.weight'] = _t(w.reshape(cin * h0 * w0, -1).transpose(1, 0))
+    out['b4.fc.bias'] = _t(p['fc']['bias'])
+    out['b4.out.weight'] = _linear_w(p['out']['weight'])
+    out['b4.out.bias'] = _t(p['out']['bias'])
+    return out
+
+
 def state_dict_from_jax(cfg, tree: Dict[str, Any]) -> 'OrderedDict':
-    """JAX G-side variables (``mapping``, ``local_g``, ``stn``) → the state
-    dict of ``MontageEnsemble(cfg)``.  Other entries (``renderer``) are not
-    ported yet and are ignored."""
+    """JAX variables (``mapping``, ``local_g``, ``local_d`` if present,
+    ``stn``) → the state dict of ``MontageEnsemble(cfg, with_d='local_d' in
+    tree)``.  Other entries (``global_d``, ``renderer``) are not ported yet
+    and are ignored."""
     out: 'OrderedDict' = OrderedDict()
     for k, v in mapping_state_dict(tree['mapping']).items():
         out[f'mapping.{k}'] = v
@@ -131,6 +172,13 @@ def state_dict_from_jax(cfg, tree: Dict[str, Any]) -> 'OrderedDict':
     for i, g in enumerate(local_g):
         for k, v in synthesis_state_dict(g).items():
             out[f'local_g.{i}.{k}'] = v
+    if 'local_d' in tree:
+        local_d = _as_list(tree['local_d'])
+        assert len(local_d) == cfg.num_layers
+        for i, d in enumerate(local_d):
+            init_res = cfg.layer_geometry(i)[0]
+            for k, v in discriminator_state_dict(d, init_res).items():
+                out[f'local_d.{i}.{k}'] = v
     if cfg.train_global:
         for k, v in stn_state_dict(tree['stn']).items():
             out[f'stn.{k}'] = v
