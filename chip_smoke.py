@@ -27,9 +27,23 @@ Phases, in order; each raises on failure, and the script then exits non-zero:
    the exact launch counts of all five kernels over the 5 steps.
 9. train cross-device: the four local losses and their gradients on a micro
    ensemble, CPU (plain) against the card (kernels), same weights and draws.
+10. composite: K5' (translate and composite) driven once through
+   ``translate_and_composite_fused`` on the full-width sampling path's
+   layer stack and STN shifts at [8, 9, 256, 256, 4], then against its
+   plain version there and at odd shapes, shifts and fills, and timed beside
+   ``F.grid_sample`` + ``alpha_composite``.
+11. aio train: 5 steps of the full-width all-in-one training step (the
+   renderer phase, the local phases, global Gmain/Dmain/R1 through the STN,
+   the tanh renderer and the global D, EMA, ADA over 10 lanes) at batch 8
+   through ``MontageTrainer`` with ``TrainHyper()`` defaults, with the exact
+   launch counts of K1'-K4' over the 5 steps, and one more step split by
+   phase.
+12. aio cross-device: the global Gmain, Dmain and R1 losses and the renderer
+   loss with their gradients on a micro ensemble with a tanh renderer and a
+   global D, CPU (plain) against the card (kernels).
 
-Each main path (6 and 8) is driven with every launch count set to 0 just
-before it and read just after.  The last two lines are the card's name and
+Each main path (6, 8, 10 and 11) is driven with every launch count set to
+0 just before it and read just after.  The last two lines are the card's name and
 power limit (from ``nvidia-smi``) and one JSON object, ``{"ok": true,
 "device": {...}}``; the line before them is ``{"kernels": [...]}``.
 """
@@ -70,6 +84,14 @@ TOL_WARP = dict(rtol=1e-5, atol=1e-5)
 TOL_TRAIN_LOSS = 1e-4
 TOL_TRAIN_GRAD = 1e-3
 
+# K5' against its plain version: the same taps and lerp weights, the
+# A-over-B recurrence against the closed form.  The colour is compared
+# premultiplied by alpha: the plain version divides Σ c·a·T by
+# 1 - Π(1 - a), whose absolute rounding error of a few ulps of 1 becomes a
+# large relative error where alpha is small (5.9e-3 against float64 at
+# alpha 1.9e-6 on a test input); the recurrence has no such cancellation.
+TOL_COMPOSITE = dict(rtol=1e-5, atol=1e-6)
+
 # H100 SXM peaks for the bounds (NVIDIA's data sheet): HBM3 bytes/s and
 # float32 FLOP/s outside the tensor cores.
 PEAK_BYTES = 3.35e12
@@ -82,6 +104,9 @@ MICRO = dict(layer_names=('a', 'b', 'c'),
              z_dim=32, w_dim=32, mapping_num_layers=2, channel_base=512,
              channel_max=32, num_fp16_res=0, conv_clamp=256,
              renderer_type='none', stn_stages=2)
+
+
+MICRO_AIO = {**MICRO, 'renderer_type': 'tanh', 'mbstd_group_size': 2}
 
 
 def log(msg=''):
@@ -466,10 +491,10 @@ def expected_launches(model):
 
 
 def expected_train_launches(model, hyper, steps):
-    """Launches of ``steps`` local-phase training steps from step 0, per
-    kernel, from the module structure.  Per layer (G: S synthesis layers, T
-    ToRGBs, A style affines, B blocks; D: nD bias_act layers, Lb of them in
-    the blocks; M mapping FCs, twice with style mixing):
+    """Launches of ``steps`` training steps from step 0, per kernel, from the
+    module structure.  Per local layer (G: S synthesis layers, T ToRGBs, A
+    style affines, B blocks; D: nD bias_act layers, Lb of them in the
+    blocks; M mapping FCs, twice with style mixing):
 
     * K1' forward: one per bias_act a forward runs.  Gmain M + G + D;
       Greg M + G; Dmain M + G + 2 D (fakes and reals apart); Dr1 D.
@@ -486,7 +511,16 @@ def expected_train_launches(model, hyper, steps):
       B - 1; Greg's inner grad B - 1 (its outer pass reads none).
     * K3': the augmented forward in Gmain (B), Dmain (2B) and Dr1, and the
       backward of K4' in Dr1's outer pass.  K4': Gmain's backward and Dr1's
-      inner grad."""
+      inner grad.
+
+    The renderer and global phases run every local G once per global
+    forward (all layers: M + G each, and B - 1 K2'), and the global D (nD,
+    Lb of its own) as a local D is run: the renderer phase one global
+    forward without gradients; global Gmain a global forward, the D, and
+    the backward of both (no renderer, STN or composite op launches a
+    kernel); global Dmain a global forward without gradients and the D on
+    fakes and reals, augmented together at 2B; global R1 the D's Dr1.  The
+    global pipe's warp runs as in the local phases."""
     from montage_gan_tpu_torch.models.layers import (Conv2dLayer,
                                                      FullyConnected)
     from montage_gan_tpu_torch.models.synthesis import (SynthesisLayer,
@@ -495,9 +529,25 @@ def expected_train_launches(model, hyper, steps):
     def count(module, kinds):
         return sum(isinstance(m, kinds) for m in module.modules())
 
-    aug = hyper.augment if not hyper.local_noaug else None
-    warp = int(aug is not None and (aug.any_blit or aug.any_geom))
+    def d_counts(d):
+        return (count(d, (Conv2dLayer, FullyConnected)),
+                sum(count(b, Conv2dLayer) for b in d.blocks()))
+
+    def has_warp(aug):
+        return int(aug is not None and (aug.any_blit or aug.any_geom))
+
+    warp = has_warp(hyper.augment if not hyper.local_noaug else None)
+    gwarp = has_warp(hyper.augment if not hyper.global_noaug else None)
     m = model.mapping.num_layers * (2 if hyper.style_mixing_prob > 0 else 1)
+    g_fwd = g_grad = g_up = 0        # one global forward: all local Gs
+    for g in model.local_g:
+        s, t = count(g, SynthesisLayer), count(g, ToRGBLayer)
+        g_fwd += m + s + t + count(g, FullyConnected)
+        g_grad += m + s + t
+        g_up += len(g.block_resolutions) - 1
+    use_r = not hyper.bypass_renderer and model.renderer is not None
+    renderer = int(hyper.train_renderer and use_r)
+    glob = int(hyper.train_global and model.stn is not None)
     out = dict.fromkeys(('bias_act', 'bias_act_grad', 'upfirdn2d',
                          'warp_forward', 'warp_transpose'), 0)
     for step in range(steps):
@@ -506,11 +556,12 @@ def expected_train_launches(model, hyper, steps):
         dr1 = int(hyper.d_reg_interval is not None and hyper.r1_gamma != 0
                   and step % hyper.d_reg_interval == 0)
         for g, d in zip(model.local_g, model.local_d):
+            if not hyper.train_local:
+                break
             s, t = count(g, SynthesisLayer), count(g, ToRGBLayer)
             n_g = s + t + count(g, FullyConnected)
             blocks = len(g.block_resolutions)
-            n_d = count(d, (Conv2dLayer, FullyConnected))
-            lb = sum(count(b, Conv2dLayer) for b in d.blocks())
+            n_d, lb = d_counts(d)
             out['bias_act'] += ((m + n_g + n_d) + greg * (m + n_g)
                                 + (m + n_g + 2 * n_d) + dr1 * n_d)
             out['bias_act_grad'] += ((n_d - 1 + s + t + m)
@@ -520,6 +571,23 @@ def expected_train_launches(model, hyper, steps):
             out['upfirdn2d'] += (blocks - 1) * (2 + 2 * greg + 1)
             out['warp_forward'] += warp * (2 + 2 * dr1)
             out['warp_transpose'] += warp * (1 + dr1)
+        out['bias_act'] += renderer * g_fwd
+        out['upfirdn2d'] += renderer * g_up
+        if not glob:
+            continue
+        goi = hyper.global_optimize_interval
+        n_d, lb = d_counts(model.global_d)
+        main = int(step % goi == 0)
+        gr1 = int(hyper.d_reg_interval is not None
+                  and hyper.global_r1_gamma != 0
+                  and step % (hyper.d_reg_interval * goi) == 0)
+        out['bias_act'] += (main * ((g_fwd + n_d) + (g_fwd + 2 * n_d))
+                            + gr1 * n_d)
+        out['bias_act_grad'] += (main * ((n_d - 1 + g_grad) + 2 * (n_d - 1))
+                                 + gr1 * (2 * (n_d - 1) + lb))
+        out['upfirdn2d'] += main * 3 * g_up
+        out['warp_forward'] += gwarp * (2 * main + 2 * gr1)
+        out['warp_transpose'] += gwarp * (main + gr1)
     return out
 
 
@@ -622,7 +690,93 @@ def phase_slice(card, kernels, cfg, device='cuda'):
     log(f'  {BATCH / sec:.2f} images/s ({sec * 1e3:.1f} ms per batch of '
         f'{BATCH}, median of 5), peak memory {peak / 2**30:.2f} GiB  '
         f'card: {card}')
-    return launches
+    return model, z
+
+
+def premultiplied(img):
+    """RGBA with the colour multiplied by alpha."""
+    import torch
+    return torch.cat([img[..., :3] * img[..., 3:], img[..., 3:]], -1)
+
+
+def phase_composite(card, model, z):
+    """K5' driven once on the sampling path's unplaced layer stack (mapped
+    to [0, 1]) and its STN shifts, then held to its plain version there and
+    at odd cases, and timed."""
+    import torch
+    import torch.nn.functional as F
+    from montage_gan_tpu_torch.ops import composite as comp
+    from montage_gan_tpu_torch.ops.grid_sample import translate_to_theta
+    from montage_gan_tpu_torch.utils.image_utils import normalize_zero1
+
+    with torch.no_grad():
+        stack = model.synthesize_layers(model.mapping(z), noise_mode='const')
+        _, theta = model.stn(stack)
+    layers = normalize_zero1(stack).clamp(0, 1).contiguous()
+    shifts = theta[..., 2].contiguous()                     # [B, L, 2]
+    b, l, h, w, _ = layers.shape
+    log(f'[composite] K5\' translate and composite  [{b},{l},{h},{w},4] '
+        f'f32, shifts in [{shifts.min().item():.4f}, '
+        f'{shifts.max().item():.4f}]  card: {card}')
+    comp.kernel.launches = 0
+    img = comp.translate_and_composite_fused(layers, shifts)
+    torch.cuda.synchronize()
+    launches = comp.kernel.launches
+    if launches != 1 or tuple(img.shape) != (b, h, w, 4) or \
+            not torch.isfinite(img).all():
+        raise AssertionError(f'composite: {launches} launches, '
+                             f'{tuple(img.shape)}')
+
+    def case(label, x, t, pad, timed=False):
+        ref = comp.translate_and_composite_ref(x, t, pad)
+        got = comp.translate_and_composite_cuda(x, t, pad)
+        straight = (got - ref).abs().max().item()
+        err = compare(f'{label} pad {pad} (colour premultiplied)',
+                      lambda: premultiplied(
+                          comp.translate_and_composite_cuda(x, t, pad)),
+                      lambda: premultiplied(ref), TOL_COMPOSITE)[0]
+        log(f'      straight colour max_abs_err {straight:.3g}')
+        return err
+
+    err = case(f'[{b},{l},{h},{w},4] sampling stack', layers, shifts, 0.0)
+    t_ms = median_ms(lambda: comp.translate_and_composite_cuda(layers,
+                                                               shifts))
+    t_plain = median_ms(lambda: comp.translate_and_composite_ref(layers,
+                                                                 shifts))
+    # two calls that compute the same function for pad 0 (the grid and the
+    # NCHW copy are made outside the timed region); a check that they do,
+    # loosely: grid_sample computes its coordinates in another order
+    nchw = layers.reshape(b * l, h, w, 4).permute(0, 3, 1, 2).contiguous()
+    grid = F.affine_grid(translate_to_theta(shifts.clamp(-1, 1)).reshape(
+        b * l, 2, 3), [b * l, 4, h, w], align_corners=False)
+
+    def two_calls():
+        moved = F.grid_sample(nchw, grid, mode='bilinear',
+                              padding_mode='zeros', align_corners=False)
+        return comp.alpha_composite(moved.permute(0, 2, 3, 1).reshape(
+            b, l, h, w, 4))
+    torch.testing.assert_close(premultiplied(two_calls()), premultiplied(img),
+                               rtol=0, atol=1e-3)
+    t_two = median_ms(two_calls)
+    bound_ms, bound_by = bound(nbytes(layers, shifts, img),
+                               70 * layers.numel() // 4)
+    log(f'  kernel {t_ms:.4f} ms  plain {t_plain:.4f} ms  F.grid_sample + '
+        f'alpha_composite {t_two:.4f} ms  bound {bound_ms:.4f} ms '
+        f'({bound_by}; {nbytes(layers, shifts, img) / 1e6:.2f} MB)  '
+        f'card: {card}')
+
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 9)
+    x = torch.rand(3, 5, 67, 45, 4, device='cuda', generator=gen)
+    x[:, 2, ..., 3] = 0.0                       # one layer with alpha 0
+    t = torch.tensor([[1.0, -1.0], [-1.0, 1.0], [1.7, -2.3], [0.0, 0.0],
+                      [-0.31, 0.77]], device='cuda')
+    t = t[None].repeat(3, 1, 1)
+    t[1] = torch.rand(5, 2, device='cuda', generator=gen) * 3 - 1.5
+    for pad in (0.0, 0.3):
+        case('[3,5,67,45,4] shifts +-1, beyond +-1, 0; alpha-0 layer', x, t,
+             pad)
+    return {'composite': (err, t_ms, t_plain, bound_ms, bound_by, None)}, \
+        launches
 
 
 def phase_cross_device(device='cuda'):
@@ -666,6 +820,17 @@ def train_setup(cfg, hyper, device, seed=SEED):
     crops = make_batch_for_local_d_np(stack01, cfg.layer_targets,
                                       to_minus11=True)
     return trainer, state, stack01 * 2.0 - 1.0, crops
+
+
+def check_moved(model, before, skip=()):
+    """Raises unless every parameter (but those named ``skip*``) moved from
+    ``before``."""
+    import torch
+    still = [k for k, v in model.named_parameters()
+             if torch.equal(v.detach(), before[k]) and not k.startswith(skip)]
+    if still:
+        raise AssertionError(f'{len(still)} parameters did not move: '
+                             f'{still[:5]}')
 
 
 def phase_train(card, kernels, cfg, device='cuda'):
@@ -723,11 +888,7 @@ def phase_train(card, kernels, cfg, device='cuda'):
         if n == 0 or n != expect[name]:
             raise AssertionError(f'{name}: {n} launches on the training path, '
                                  f'expected {expect[name]}')
-    still = [k for k, v in model.named_parameters()
-             if torch.equal(v.detach(), before[k])]
-    if still:
-        raise AssertionError(f'{len(still)} parameters did not move: '
-                             f'{still[:5]}')
+    check_moved(model, before, skip=('renderer.',))   # not trained here
     if state.step != TRAIN_STEPS or not torch.isfinite(state.pl_mean).all():
         raise AssertionError(f'state after the steps: step {state.step}, '
                              f'pl_mean {state.pl_mean}')
@@ -753,6 +914,51 @@ def cpu_draws(seed, device):
         def uniform(self, shape, kind):
             return super().uniform(shape, kind).to(device)
     return CpuDraws(torch.Generator().manual_seed(seed))
+
+
+def spread(grads, ref_grads):
+    """(largest entry difference, worst tensor) over a phase's gradients,
+    relative to the phase's largest entry."""
+    import torch
+    # autograd gives None where the other path may give structural zeros
+    pairs = [(i, torch.zeros_like(r) if g is None else g,
+              torch.zeros_like(g) if r is None else r)
+             for i, (g, r) in enumerate(zip(grads, ref_grads))
+             if g is not None or r is not None]
+    scale = max(max(r.abs().max().item() for _, _, r in pairs), 1e-12)
+    errs = [((g - r).abs().max().item() / scale, i) for i, g, r in pairs]
+    return max(errs)
+
+
+def nudged_copy(model):
+    """A copy of ``model`` with every weight moved by 1e-6 relative: the
+    CPU against it gives the float32 spread of a phase's gradients."""
+    import torch
+    nudged = copy.deepcopy(model)
+    with torch.no_grad():
+        for i, p in enumerate(nudged.parameters()):
+            p.mul_(1 + 1e-6 * torch.randn(
+                p.shape, generator=torch.Generator().manual_seed(i)))
+    return nudged
+
+
+def check_phase(phase, run, cpu, card, nudged, device):
+    """A phase's loss and gradients, card against CPU; raises beyond
+    ``TOL_TRAIN_LOSS`` / ``TOL_TRAIN_GRAD``."""
+    ref_loss, ref_grads = run(cpu, 'cpu', phase)
+    loss, grads = run(card, device, phase)
+    if not abs(loss.item() - ref_loss.item()) <= TOL_TRAIN_LOSS:
+        raise AssertionError(f'{phase}: loss {loss.item()} on the card, '
+                             f'{ref_loss.item()} on the CPU')
+    worst, at = spread(grads, ref_grads)
+    floor, _ = spread(run(nudged, 'cpu', phase)[1], ref_grads)
+    if not worst <= TOL_TRAIN_GRAD:
+        raise AssertionError(f'{phase}: gradient {at} differs by '
+                             f'{worst:.3g} of the phase\'s largest entry')
+    log(f'  ok  {phase}: loss {loss.item():.6f} (CPU {ref_loss.item():.6f},'
+        f' atol {TOL_TRAIN_LOSS}); gradients within {worst:.3g} of the '
+        f'phase\'s largest entry (limit {TOL_TRAIN_GRAD}; CPU with '
+        f'weights moved 1e-6: {floor:.3g})')
 
 
 def phase_train_cross_device(device='cuda'):
@@ -805,41 +1011,154 @@ def phase_train_cross_device(device='cuda'):
         return loss.detach().cpu(), [None if g is None else g.cpu()
                                      for g in grads]
 
-    # the CPU against itself with every weight moved by 1e-6 relative: the
-    # float32 spread of each phase's gradients
-    nudged = copy.deepcopy(cpu)
-    with torch.no_grad():
-        for i, p in enumerate(nudged.parameters()):
-            p.mul_(1 + 1e-6 * torch.randn(
-                p.shape, generator=torch.Generator().manual_seed(i)))
-
-    def spread(grads, ref_grads):
-        """(largest entry difference, worst tensor) over the phase's
-        gradients, relative to the phase's largest entry."""
-        # autograd gives None where the other path may give structural zeros
-        pairs = [(i, torch.zeros_like(r) if g is None else g,
-                  torch.zeros_like(g) if r is None else r)
-                 for i, (g, r) in enumerate(zip(grads, ref_grads))
-                 if g is not None or r is not None]
-        scale = max(max(r.abs().max().item() for _, _, r in pairs), 1e-12)
-        errs = [((g - r).abs().max().item() / scale, i) for i, g, r in pairs]
-        return max(errs)
-
+    nudged = nudged_copy(cpu)
     for phase in ('Gmain', 'Greg', 'Dmain', 'Dr1'):
-        ref_loss, ref_grads = run(cpu, 'cpu', phase)
-        loss, grads = run(card, device, phase)
-        if not abs(loss.item() - ref_loss.item()) <= TOL_TRAIN_LOSS:
-            raise AssertionError(f'{phase}: loss {loss.item()} on the card, '
-                                 f'{ref_loss.item()} on the CPU')
-        worst, at = spread(grads, ref_grads)
-        floor, _ = spread(run(nudged, 'cpu', phase)[1], ref_grads)
-        if not worst <= TOL_TRAIN_GRAD:
-            raise AssertionError(f'{phase}: gradient {at} differs by '
-                                 f'{worst:.3g} of the phase\'s largest entry')
-        log(f'  ok  {phase}: loss {loss.item():.6f} (CPU {ref_loss.item():.6f},'
-            f' atol {TOL_TRAIN_LOSS}); gradients within {worst:.3g} of the '
-            f'phase\'s largest entry (limit {TOL_TRAIN_GRAD}; CPU with '
-            f'weights moved 1e-6: {floor:.3g})')
+        check_phase(phase, run, cpu, card, nudged, device)
+
+
+def phase_aio_train(card, kernels, cfg, device='cuda'):
+    """5 full-width AIO steps at batch 8 with ``TrainHyper()`` defaults:
+    every step runs the renderer phase, Gmain and Dmain of each layer, and
+    global Gmain and Dmain; step 0 also Greg, Dr1 and global R1, step 4
+    Greg; the ADA controller fires after step 3.  Then one step with a
+    synchronisation after each phase, for the split."""
+    import torch
+    from montage_gan_tpu_torch.tools.profile import phase_split
+    from montage_gan_tpu_torch.training.augment import make_augment_config
+    from montage_gan_tpu_torch.training.train_step import TrainHyper
+
+    hyper = TrainHyper(batch_size=BATCH,
+                       augment=make_augment_config('bgcfnc'),
+                       augment_p_init=0.6)
+    log(f'[aio train] config aio, all phases: renderer {cfg.renderer_type}, '
+        f'{cfg.num_layers} local G/D pairs, STN, global D at '
+        f'{cfg.base_resolution} (init_res {cfg.base_init_res}), batch '
+        f'{BATCH}, augment bgcfnc at p {hyper.augment_p_init}, global every '
+        f'{hyper.global_optimize_interval}, g_reg every '
+        f'{hyper.g_reg_interval}, d_reg every {hyper.d_reg_interval}')
+    t0 = time.perf_counter()
+    trainer, state, stack, crops = train_setup(cfg, hyper, device)
+    model = trainer.ens
+    n_params = sum(p.numel() for p in model.parameters())
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    crops = [torch.from_numpy(c).to(device) for c in crops]
+    stack = torch.from_numpy(stack).float().to(device)
+    log(f'  init {time.perf_counter() - t0:.1f} s, {n_params} parameters')
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    times = []
+    for step in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, stats = trainer.train_step(state, stack, crops, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        bad = [k for k, v in stats.items() if not torch.isfinite(v).all()]
+        if bad:
+            raise AssertionError(f'step {step}: non-finite stats {bad}')
+        first = cfg.layer_names[0]
+        reg = ' (with Greg, Dr1, global R1)' if step == 0 else (
+            ' (with Greg)' if step % hyper.g_reg_interval == 0 else '')
+        log(f'  step {step}{reg}: {times[-1] * 1e3:.1f} ms; renderer loss '
+            f'{stats["Renderer/loss_gen"].item():.4f} + '
+            f'{stats["Renderer/loss_real"].item():.4f}, global G loss '
+            f'{stats["global/Loss/G/loss"].item():.4f}, global D loss '
+            f'{stats["global/Loss/D/loss"].item():.4f}, {first} G loss '
+            f'{stats[f"{first}/Loss/G/loss"].item():.4f}')
+        if step == 0:
+            log(f'    global R1 penalty '
+                f'{stats["global/Loss/r1_penalty"].item():.6g}, theta '
+                f'constraint {stats["global/Loss/STN/theta_constrain"]}')
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    expect = expected_train_launches(model, hyper, TRAIN_STEPS)
+    log(f'  launches over {TRAIN_STEPS} steps {launches}, expected {expect}')
+    for name, n in launches.items():
+        if n == 0 or n != expect[name]:
+            raise AssertionError(f'{name}: {n} launches on the AIO path, '
+                                 f'expected {expect[name]}')
+    check_moved(model, before)
+    if state.step != TRAIN_STEPS or not torch.isfinite(
+            model.mapping.w_avg).all():
+        raise AssertionError(f'state after the steps: step {state.step}')
+    ema_names = {k for k, _ in state.ema.named_parameters()}
+    if any(k.startswith(('renderer.', 'global_d.', 'local_d.'))
+           for k in ema_names) or not any(k.startswith('stn.')
+                                          for k in ema_names):
+        raise AssertionError('the EMA holds other modules than the mapping, '
+                             'the local Gs and the STN')
+    mid = statistics.median(times[1:4])
+    log(f'  every parameter moved (renderer, global D, STN included); aug_p '
+        f'{[round(v, 6) for v in state.aug_p.tolist()]}')
+    log(f'  steps 1-3: median {mid * 1e3:.1f} ms, {BATCH / mid:.2f} '
+        f'images/s; step 0 {times[0] * 1e3:.1f} ms, step 4 '
+        f'{times[4] * 1e3:.1f} ms; peak memory {peak / 2**30:.2f} GiB  '
+        f'card: {card}')
+    split = phase_split(lambda: trainer.train_step(state, stack, crops, gen),
+                        1)
+    log('  step 5 by phase (synchronised after each; ms): ' + ', '.join(
+        f'{k} {v:.1f}' for k, v in split.items()))
+    return launches
+
+
+def phase_aio_cross_device(device='cuda'):
+    """The renderer loss and the global Gmain, Dmain and R1 losses with
+    their gradients on a float32 micro ensemble with a tanh renderer and a
+    global D: CPU (plain versions) against the card (kernels)."""
+    import torch
+    from montage_gan_tpu_torch.models.ensemble import MontageConfig
+    from montage_gan_tpu_torch.training import losses
+    from montage_gan_tpu_torch.training.augment import make_augment_config
+    from montage_gan_tpu_torch.training.train_step import TrainHyper
+
+    cfg = MontageConfig(**MICRO_AIO)
+    hyper = TrainHyper(batch_size=4, augment=make_augment_config('bgcfnc'))
+    log(f'[aio cross-device] micro ensemble {cfg.layer_targets}, base '
+        f'{cfg.base_resolution}, tanh renderer, global D, float32, augment '
+        'bgcfnc at p 0.6: CPU (plain) against card (kernels)')
+    trainer, _, stack, _ = train_setup(cfg, hyper, 'cpu', seed=SEED + 10)
+    cpu = trainer.ens
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():     # zero-init terms do work
+            if name.endswith(('bias', 'noise_strength')) or \
+                    name.startswith('stn.fc_loc.2'):
+                p.add_(torch.randn(p.shape, generator=torch.Generator()
+                                   .manual_seed(len(name))) * 0.1)
+    card = copy.deepcopy(cpu).to(device)
+    z = torch.randn(4, cfg.z_dim, generator=torch.Generator().manual_seed(11))
+    real = torch.from_numpy(stack).float()
+    trained = {'renderer': ('renderer.',), 'global Gmain': (
+        'mapping.', 'local_g.', 'stn.'), 'global Dmain': ('global_d.',),
+        'global Dr1': ('global_d.',)}
+
+    def run(model, dev, phase):
+        draws = cpu_draws(SEED + 12, dev).scoped('global_')
+        aug, p = hyper.augment, 0.6
+        if phase == 'renderer':
+            loss, _ = losses.renderer_loss(model, z.to(dev), real.to(dev),
+                                           draws)
+        elif phase == 'global Gmain':
+            loss, _ = losses.global_gmain_loss(model, z.to(dev), draws, aug,
+                                               p)
+        elif phase == 'global Dmain':
+            loss, _, _ = losses.global_dmain_loss(model, z.to(dev),
+                                                  real.to(dev), draws, aug, p)
+        else:
+            loss, _, _ = losses.global_dr1_loss(model, real.to(dev), draws,
+                                                aug, p)
+        params = [p for k, p in model.named_parameters()
+                  if k.startswith(trained[phase])]
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return loss.detach().cpu(), [None if g is None else g.cpu()
+                                     for g in grads]
+
+    nudged = nudged_copy(cpu)
+    for phase in trained:
+        check_phase(phase, run, cpu, card, nudged, device)
 
 
 def main():
@@ -889,19 +1208,26 @@ def main():
     checks['bias_act_grad'] = grads['bias_act_grad']
 
     slice_kernels = {k: kernels[k] for k in ('bias_act', 'upfirdn2d')}
-    phase_slice(card, slice_kernels, MontageConfig())
+    model, z = phase_slice(card, slice_kernels, MontageConfig())
+    composite_check, composite_launches = phase_composite(card, model, z)
+    checks.update(composite_check)
+    del model
     phase_cross_device()
-    launches = phase_train(card, kernels, MontageConfig(train_global=False))
+    phase_train(card, kernels, MontageConfig(train_global=False))
     phase_train_cross_device()
+    launches = phase_aio_train(card, kernels, MontageConfig())
+    launches['composite'] = composite_launches
+    phase_aio_cross_device()
 
     sources = {
         'bias_act': ('bias_act.cu', 'bias_act_kernel.py:39'),
         'bias_act_grad': ('bias_act.cu', 'bias_act_kernel.py:39'),
         'upfirdn2d': ('upfirdn2d.cu', 'upfirdn2d_kernel.py:222'),
         'warp_forward': ('warp.cu', 'warp_kernel.py:274'),
-        'warp_transpose': ('warp.cu', 'warp_kernel.py:384')}
+        'warp_transpose': ('warp.cu', 'warp_kernel.py:384'),
+        'composite': ('composite.cu', 'composite_kernel.py:80')}
     rows = []
-    for name in kernels:
+    for name in [*kernels, 'composite']:
         err, ms, plain, bound_ms, bound_by, lib = checks[name]
         src, rep = sources[name]
         rows.append({'name': name, 'route': 'cuda',

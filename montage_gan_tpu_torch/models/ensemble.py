@@ -1,9 +1,9 @@
 """The MontageGAN ensemble: shared mapping → L local synthesis nets → STN
 placement → alpha composite, and the L local discriminators.
 
-Port of ``montage_gan_tpu/models/ensemble.py``.  The renderer and the global
-D come with later slices; ``MontageConfig`` keeps all the JAX package's
-fields so its snapshots' configs load as they are.
+Port of ``montage_gan_tpu/models/ensemble.py``, with the global D and the
+learned renderer of the all-in-one training step.  ``MontageConfig`` keeps
+all the JAX package's fields so its snapshots' configs load as they are.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from ..utils.image_utils import (make_batch_for_pos_estimator,
                                  normalize_minus11, normalize_zero1)
 from .discriminator import Discriminator
 from .mapping import GlobalMappingNetwork, MappingNetwork
+from .renderer import build_renderer
 from .stn import STN
 from .synthesis import SynthesisNetwork
 
@@ -50,7 +51,7 @@ class MontageConfig:
     mbstd_group_size: int = 4
     use_global_mapping: bool = True
     train_global: bool = True
-    renderer_type: str = 'tanh'  # 'tanh' | 'subpixel' | 'none'; not ported yet
+    renderer_type: str = 'tanh'  # 'tanh' | 'sigmoid' | 'subpixel' | 'none'
     stn_stages: int = 5
 
     @property
@@ -63,6 +64,13 @@ class MontageConfig:
                                          conv_config_index=self.conv_config_index)
         return tuple(init_res), res
 
+    @property
+    def base_init_res(self) -> Tuple[int, int]:
+        """The global D's ``init_res``: that of the base resolution."""
+        init_res, _, _ = calc_init_res([self.base_resolution] * 2,
+                                       conv_config_index=self.conv_config_index)
+        return tuple(init_res)
+
     @classmethod
     def from_dict(cls, raw: dict) -> 'MontageConfig':
         raw = dict(raw)
@@ -72,9 +80,11 @@ class MontageConfig:
 
 
 class MontageEnsemble(nn.Module):
-    """``mapping``, ``local_g[i]``, ``stn`` and, with ``with_d`` (training),
-    ``local_d[i]``: one ``Discriminator`` per layer, at the layer's
-    geometry."""
+    """``mapping``, ``local_g[i]``, ``stn`` (with ``train_global``) and
+    ``renderer`` (unless ``renderer_type='none'``); with ``with_d``
+    (training) also ``local_d[i]``, one ``Discriminator`` per layer at the
+    layer's geometry, and with ``train_global`` the ``global_d`` at the base
+    resolution."""
 
     def __init__(self, cfg: MontageConfig, with_d: bool = False):
         super().__init__()
@@ -112,17 +122,34 @@ class MontageEnsemble(nn.Module):
         self.local_g = nn.ModuleList(local_g)
         self.local_d = nn.ModuleList(local_d) if with_d else None
         self.stn = None
+        self.global_d = None
         if cfg.train_global:
             self.stn = STN(img_resolution=cfg.base_resolution,
                            img_channels=cfg.img_channels,
                            img_layers=cfg.num_layers,
                            num_stages=cfg.stn_stages)
+            if with_d:
+                self.global_d = Discriminator(
+                    img_resolution=cfg.base_resolution,
+                    img_channels=cfg.img_channels,
+                    init_res=cfg.base_init_res,
+                    conv_config_index=cfg.conv_config_index,
+                    channel_base=cfg.channel_base,
+                    channel_max=cfg.channel_max,
+                    num_fp16_res=cfg.num_fp16_res,
+                    conv_clamp=cfg.conv_clamp,
+                    mbstd_group_size=cfg.mbstd_group_size)
+        self.renderer = None
+        if cfg.renderer_type != 'none':
+            self.renderer = build_renderer(
+                cfg.renderer_type, img_resolution=cfg.base_resolution,
+                img_channels=cfg.img_channels, img_layers=cfg.num_layers)
 
     def init_weights(self, seed: int) -> 'MontageEnsemble':
         """Re-initialise every weight from one seeded generator, with the
         JAX package's initializers (N(0, 1)/lr for equalized-LR layers, unit
         normal noise_const, zero or constant biases, flax's lecun normal for
-        the STN, zeros for the STN's last FC)."""
+        the STN and the renderer, zeros for the STN's last FC)."""
         g = torch.Generator().manual_seed(seed)
         with torch.no_grad():
             self.mapping.reset_parameters(g)
@@ -132,6 +159,10 @@ class MontageEnsemble(nn.Module):
                 net.reset_parameters(g)
             if self.stn is not None:
                 self.stn.reset_parameters(g)
+            if self.global_d is not None:
+                self.global_d.reset_parameters(g)
+            if self.renderer is not None:
+                self.renderer.reset_parameters(g)
         return self
 
     def ws_for_layer(self, ws: torch.Tensor, layer_idx: int) -> torch.Tensor:
@@ -168,8 +199,8 @@ class MontageEnsemble(nn.Module):
 
     def blend(self, stack: torch.Tensor,
               use_renderer: bool = True) -> torch.Tensor:
-        """Layer stack [-1, 1] → blended image [-1, 1]."""
-        if use_renderer and self.cfg.renderer_type != 'none':
-            raise NotImplementedError('the renderer is not ported yet; '
-                                      'use use_renderer=False')
+        """Layer stack [-1, 1] → blended image [-1, 1]: the renderer where
+        there is one and ``use_renderer``, else the alpha composite."""
+        if use_renderer and self.renderer is not None:
+            return self.renderer(stack)
         return normalize_minus11(alpha_composite(normalize_zero1(stack)))

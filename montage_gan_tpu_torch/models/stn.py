@@ -23,8 +23,8 @@ from ..utils.image_utils import stack_layer_to_channel
 _KERNELS = (7, 5, 3, 3, 3)
 
 
-def _lecun_normal_(w: torch.Tensor, fan_in: int,
-                   generator: Optional[torch.Generator]) -> None:
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator]) -> None:
     """flax's default kernel init: truncated normal in ±2σ with variance
     1/fan_in after truncation."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -55,10 +55,10 @@ class STN(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         for m in self.localization:
             if isinstance(m, nn.Conv2d):
-                _lecun_normal_(m.weight, m.weight[0].numel(), generator)
+                lecun_normal_(m.weight, m.weight[0].numel(), generator)
                 nn.init.zeros_(m.bias)
-        _lecun_normal_(self.fc_loc[0].weight, self.fc_loc[0].in_features,
-                       generator)
+        lecun_normal_(self.fc_loc[0].weight, self.fc_loc[0].in_features,
+                      generator)
         nn.init.zeros_(self.fc_loc[0].bias)
         nn.init.zeros_(self.fc_loc[2].weight)
         nn.init.zeros_(self.fc_loc[2].bias)

@@ -27,7 +27,7 @@ CSRC_DIR = PACKAGE_DIR / 'csrc'
 BUILD_DIR = PACKAGE_DIR / 'build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
-SOURCES = ('bias_act', 'upfirdn2d', 'warp')
+SOURCES = ('bias_act', 'upfirdn2d', 'warp', 'composite')
 
 # name -> compiler log (ptxas register/spill report) of the builds this
 # process ran; empty for libraries that were already built.

@@ -1,17 +1,22 @@
 """Where the card's time goes on the port's main paths, by kernel family.
 
+    python -m montage_gan_tpu_torch.tools.profile --path aio
     python -m montage_gan_tpu_torch.tools.profile --path train
     python -m montage_gan_tpu_torch.tools.profile --path sample
 
 Full-width config ``aio`` (``MontageConfig()`` widths and depths) at batch 8,
 seeded random weights, on the card:
 
-* ``train``: the local-phase training step (``train_global=False``, augment
-  ``bgcfnc`` at p 0.6, synthetic reals).  Step 0 (all four phases) warms up;
-  steps 1-3 (Gmain + Dmain for each of the 9 layers) run under
-  ``torch.profiler``; steps 5-7 (the same phases) run without it, timed on
-  the host clock; steps 9-11 again, with a synchronisation after each phase
-  for the per-phase split (steps 4 and 8 run Greg and are not timed).
+* ``aio``: the all-in-one training step, ``TrainHyper()`` defaults (the
+  renderer phase, the local phases, global Gmain/Dmain every step, global
+  R1 every 16), augment ``bgcfnc`` at p 0.6, synthetic reals;
+* ``train``: the local-phase training step (``train_global=False``).
+
+  For both, step 0 (every phase) warms up; steps 1-3 (no regularizer) run
+  under ``torch.profiler``; steps 5-7 run without it, timed on the host
+  clock (steps 4 and 8 run Greg and are not timed); steps 9-11 again, with
+  a synchronisation after each phase for the per-phase split; then one step
+  numbered 16, where every regularizer runs, split the same way.
 * ``sample``: ``build_inference_fn`` (``noise_mode='const'``); one warm-up
   call, 3 calls under the profiler, 5 timed without it.
 
@@ -38,6 +43,7 @@ FAMILIES = (
     ("K2' upfirdn2d", ('upfirdn2d_kernel',)),
     ("K3' warp forward", ('warp_forward_kernel',)),
     ("K4' warp transpose", ('warp_transpose_kernel',)),
+    ("K5' composite", ('composite_kernel',)),
     ('convolution (cuDNN)', ('conv', 'fprop', 'dgrad', 'wgrad', 'cudnn',
                              'winograd', 'implicit_gemm')),
     ('matrix products (cuBLAS)', ('gemm', 'gemv')),
@@ -87,33 +93,36 @@ def kernel_table(prof, calls: int):
     return fam_ms, fam_n, name_ms
 
 
-def setup_train():
+def setup_train(aio: bool):
+    """(state box, step function) of the AIO step, or of the local-phase
+    step (``aio=False``)."""
     from ..data.synthetic import synthetic_batch
     from ..models.ensemble import MontageConfig, MontageEnsemble
     from ..training.augment import make_augment_config
     from ..training.train_step import MontageTrainer, TrainHyper
     from ..utils.image_utils import make_batch_for_local_d_np
-    cfg = MontageConfig(train_global=False)
-    hyper = TrainHyper(batch_size=BATCH, train_global=False,
-                       train_renderer=False,
-                       augment=make_augment_config('bgcfnc'),
-                       augment_p_init=0.6)
+    local = {} if aio else dict(train_global=False)
+    cfg = MontageConfig(**local)
+    hyper = TrainHyper(batch_size=BATCH, augment=make_augment_config('bgcfnc'),
+                       augment_p_init=0.6, train_renderer=aio, **local)
     trainer = MontageTrainer(MontageEnsemble(cfg, with_d=True), hyper)
     box = {'state': trainer.init_state(SEED)}
     stack01 = synthetic_batch(np.random.RandomState(SEED), BATCH,
                               cfg.num_layers, cfg.base_resolution)
     crops = [torch.from_numpy(c).cuda() for c in make_batch_for_local_d_np(
         stack01, cfg.layer_targets, to_minus11=True)]
+    stack = torch.from_numpy(stack01 * 2.0 - 1.0).float().cuda()
     gen = torch.Generator(device='cuda').manual_seed(SEED)
 
     def step():
-        box['state'], _ = trainer.train_step(box['state'], None, crops, gen)
+        box['state'], _ = trainer.train_step(box['state'], stack, crops, gen)
     return box, step
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--path', choices=('train', 'sample'), default='train')
+    ap.add_argument('--path', choices=('aio', 'train', 'sample'),
+                    default='aio')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile: no CUDA device')
@@ -132,8 +141,9 @@ def main(argv=None):
         return times
 
     phases = None
-    if args.path == 'train':
-        box, step = setup_train()
+    training = args.path in ('aio', 'train')
+    if training:
+        box, step = setup_train(args.path == 'aio')
         timed_ms(step, 1)                                  # step 0
         calls, unit = 3, 'step'
         run = step
@@ -155,12 +165,13 @@ def main(argv=None):
         prof_ms = timed_ms(run, calls)
     fam_ms, fam_n, name_ms = kernel_table(prof, calls)
 
-    if args.path == 'train':
+    if training:
         timed_ms(step, 1)                                  # step 4 (Greg)
         wall = timed_ms(step, 3)                           # steps 5-7
         timed_ms(step, 1)                                  # step 8 (Greg)
-        g_ids = {id(o) for o in box['state'].opt_local_g}
-        phases = _phase_split(step, g_ids, 3)              # steps 9-11
+        phases = phase_split(step, 3)                      # steps 9-11
+        box['state'].step = 16                             # every regularizer
+        reg_phases = phase_split(step, 1)
     else:
         wall = timed_ms(run, 5)
     total = sum(fam_ms.values())
@@ -177,29 +188,50 @@ def main(argv=None):
     for (fam, name), ms in name_ms.most_common(12):
         print(f'    {ms:9.3f} ms  [{fam}] {name[:160]}')
     if phases:
-        print('  per phase, summed over the 9 layers (synchronised after '
-              'each): ' + ', '.join(f'{k} {v:.1f} ms'
-                                    for k, v in phases.items()))
+        for label, split in (('steps 9-11', phases),
+                             ('step 16 (every regularizer)', reg_phases)):
+            print(f'  per phase, {label}, local phases summed over the 9 '
+                  'layers (synchronised after each): ' + ', '.join(
+                      f'{k} {v:.1f} ms' for k, v in split.items()))
 
 
-def _phase_split(step, g_ids, steps: int):
-    """Wall ms per phase kind (loss, backward and Adam, summed over the 9
-    layers) and of the rest of the step (EMA, ADA), with a synchronisation
-    after each phase; the median over ``steps`` Gmain + Dmain steps."""
+# The loss of each phase, by its name in training/losses.py.
+PHASES = {'renderer_loss': 'renderer', 'local_gmain_loss': 'Gmain',
+          'local_gpl_loss': 'Greg', 'local_dmain_loss': 'Dmain',
+          'local_dr1_loss': 'Dr1', 'global_gmain_loss': 'global Gmain',
+          'global_dmain_loss': 'global Dmain',
+          'global_dr1_loss': 'global Dr1'}
+
+
+def phase_split(step, steps: int):
+    """Wall ms per phase (its loss, backward and optimizer step; the local
+    phases summed over the layers) and of the rest of the step (EMA, ADA),
+    with a synchronisation after each phase; the median over ``steps``
+    calls of ``step``."""
+    from ..training import losses
     from ..training import train_step as ts
-    orig = ts._apply_grads
+    orig_apply = ts._apply_grads
+    orig_losses = {name: getattr(losses, name) for name in PHASES}
     per_step = []
     mark = [0.0]
+    current = ['']
+
+    def labelled(name):
+        def fn(*args, **kwargs):
+            current[0] = PHASES[name]
+            return orig_losses[name](*args, **kwargs)
+        return fn
 
     def timed(opt, params, loss):
-        orig(opt, params, loss)
+        orig_apply(opt, params, loss)
         torch.cuda.synchronize()
         now = time.perf_counter()
-        kind = 'Gmain' if id(opt) in g_ids else 'Dmain'
-        per_step[-1][kind] += (now - mark[0]) * 1e3
+        per_step[-1][current[0]] += (now - mark[0]) * 1e3
         mark[0] = now
 
     ts._apply_grads = timed
+    for name in PHASES:
+        setattr(losses, name, labelled(name))
     try:
         for _ in range(steps):
             per_step.append(collections.Counter())
@@ -209,7 +241,9 @@ def _phase_split(step, g_ids, steps: int):
             torch.cuda.synchronize()
             per_step[-1]['EMA and ADA'] += (time.perf_counter() - mark[0]) * 1e3
     finally:
-        ts._apply_grads = orig
+        ts._apply_grads = orig_apply
+        for name, fn in orig_losses.items():
+            setattr(losses, name, fn)
     return {k: statistics.median(s[k] for s in per_step) for k in per_step[0]}
 
 

@@ -1,13 +1,19 @@
-"""The local-GAN phase losses.
+"""The phase losses of the training step.
 
-Port of the local part of ``montage_gan_tpu/training/losses.py`` (lines
-50-253): non-saturating logistic losses, style mixing, the path-length
-regularizer and R1 through the augment pipe.  Each function reads the
-modules' parameters directly; the trainer asks autograd for the gradients
-of the parameters its phase trains.  Path length and R1 keep the
-double-backward structure (``create_graph=True``): the outer gradient
-differentiates the inner one, as the reference does.  Every random tensor
-comes from a ``Draws``.
+Port of ``montage_gan_tpu/training/losses.py``: non-saturating logistic
+losses, style mixing, the path-length regularizer and R1 through the augment
+pipe for the local GANs (lines 50-253); the theta constraint, the global G
+forward (9 local Gs → STN), the global D (renderer or composite → augment →
+D), global Gmain, Dmain and R1, and the renderer's self-supervised loss
+(lines 260-531).  Each function reads the modules' parameters directly; the
+trainer asks autograd for the gradients of the parameters its phase trains.
+Path length and both R1s keep the double-backward structure
+(``create_graph=True``): the outer gradient differentiates the inner one, as
+the reference does.  Every random tensor comes from a ``Draws``.
+
+The JAX package vmaps the global forward over same-geometry layers and
+rematerialises it (``jax.checkpoint``); neither changes a result, and the
+port runs the layers in a plain loop.
 """
 
 from __future__ import annotations
@@ -19,6 +25,10 @@ import torch
 import torch.nn.functional as F
 
 from ..models.ensemble import MontageEnsemble
+from ..ops.composite import alpha_composite
+from ..ops.grid_sample import translate_to_theta
+from ..utils.image_utils import (calc_psnr, make_batch_for_pos_estimator,
+                                 normalize_zero1)
 from .augment import AugmentConfig, augment_pipe
 from .draws import Draws
 
@@ -143,3 +153,150 @@ def local_dr1_loss(ens: MontageEnsemble, layer: int, real_img: torch.Tensor,
     loss = r1_penalty.mean() * (r1_gamma / 2)
     return loss, {'Loss/r1_penalty': r1_penalty.mean(),
                   'Loss/D/reg': loss}, logits.sign().mean()
+
+
+# ---------------------------------------------------------------------------
+# The global phases and the renderer phase
+# ---------------------------------------------------------------------------
+
+def theta_constrain_loss(theta: torch.Tensor) -> torch.Tensor:
+    """L2 norm of the part of ``theta`` ``[..., L, 2, 3]`` outside the
+    [-1, 1] translation box."""
+    ones = torch.ones(theta.shape[-3], 2, device=theta.device)
+    upper, lower = translate_to_theta(ones), translate_to_theta(-ones)
+    clamped = torch.maximum(torch.minimum(theta, upper), lower)
+    return ((theta - clamped).square().sum() + 1e-20).sqrt()
+
+
+def run_global_g(ens: MontageEnsemble, z: torch.Tensor, draws: Draws,
+                 style_mixing_prob: float, update_w_avg: bool = True
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """run_global_G: every local G from the same z (each layer with its own
+    style mixing and noise) → centre-pad to the base resolution (pad -1) →
+    STN.  Returns (placed ``[B, L, H, W, C]``, theta ``[B, L, 2, 3]``).
+    With ``update_w_avg`` the mapping's ``w_avg`` takes one update per
+    layer, in layer order, as the JAX package's closed form
+    (``seq_moving_stats``) does."""
+    outs = [run_local_g(ens, i, z, draws, style_mixing_prob, update_w_avg)[0]
+            for i in range(ens.cfg.num_layers)]
+    stack = make_batch_for_pos_estimator(outs, ens.cfg.base_resolution,
+                                         pad_value=-1.0)
+    return ens.stn(stack)
+
+
+def _global_d_in(ens: MontageEnsemble, stack: torch.Tensor,
+                 aug_cfg: Optional[AugmentConfig], aug_p, draws: Draws,
+                 use_renderer: bool) -> torch.Tensor:
+    """The global D's input: renderer (or composite) → augment pipe."""
+    blended = ens.blend(stack, use_renderer)
+    if aug_cfg is not None:
+        blended = augment_pipe(blended, aug_p, aug_cfg, draws)
+    return blended
+
+
+def run_global_d(ens: MontageEnsemble, stack: torch.Tensor,
+                 aug_cfg: Optional[AugmentConfig], aug_p, draws: Draws,
+                 use_renderer: bool) -> torch.Tensor:
+    """run_global_D: a layer stack in [-1, 1] → the global D's logits."""
+    return ens.global_d(_global_d_in(ens, stack, aug_cfg, aug_p, draws,
+                                     use_renderer))
+
+
+def global_gmain_loss(ens: MontageEnsemble, z: torch.Tensor, draws: Draws,
+                      aug_cfg: Optional[AugmentConfig], aug_p,
+                      style_mixing_prob: float = 0.9,
+                      use_renderer: bool = True) -> Tuple[torch.Tensor, Stats]:
+    """G's non-saturating loss against the (not trained) global D, through
+    the (not trained) renderer, plus the theta constraint; gradients reach
+    the mapping, the local Gs and the STN."""
+    placed, theta = run_global_g(ens, z, draws, style_mixing_prob)
+    logits = run_global_d(ens, placed, aug_cfg, aug_p, draws, use_renderer)
+    loss_g = F.softplus(-logits).mean()
+    loss_theta = theta_constrain_loss(theta)
+    return loss_g + loss_theta, {
+        'Loss/scores/fake': logits.mean(),
+        'Loss/signs/fake': logits.sign().mean(),
+        'Loss/G/loss': loss_g, 'Loss/STN/theta_constrain': loss_theta}
+
+
+def global_dmain_loss(ens: MontageEnsemble, z: torch.Tensor,
+                      real_stack: torch.Tensor, draws: Draws,
+                      aug_cfg: Optional[AugmentConfig], aug_p,
+                      style_mixing_prob: float = 0.9,
+                      use_renderer: bool = True,
+                      real_use_renderer: bool = True
+                      ) -> Tuple[torch.Tensor, Stats, torch.Tensor]:
+    """Global Dgen + Dreal.  Where fakes and reals take the same path (and
+    shape) they ride through one renderer call and one augment call at 2B;
+    D runs on each half apart.  Returns (loss, stats, mean sign of the real
+    logits)."""
+    with torch.no_grad():
+        placed, _ = run_global_g(ens, z, draws, style_mixing_prob)
+    real_use_r = use_renderer and real_use_renderer
+    if real_use_r == use_renderer and placed.shape == real_stack.shape:
+        both = _global_d_in(ens, torch.cat([placed, real_stack]), aug_cfg,
+                            aug_p, draws, use_renderer)
+        gen_in, real_in = both.chunk(2)
+        gen_logits, real_logits = ens.global_d(gen_in), ens.global_d(real_in)
+    else:
+        gen_logits = run_global_d(ens, placed, aug_cfg, aug_p, draws,
+                                  use_renderer)
+        real_logits = run_global_d(ens, real_stack, aug_cfg, aug_p, draws,
+                                   real_use_r)
+    loss = F.softplus(gen_logits).mean() + F.softplus(-real_logits).mean()
+    sign_real = real_logits.sign().mean()
+    return loss, {'Loss/scores/fake': gen_logits.mean(),
+                  'Loss/signs/fake': gen_logits.sign().mean(),
+                  'Loss/scores/real': real_logits.mean(),
+                  'Loss/signs/real': sign_real,
+                  'Loss/D/loss': loss}, sign_real
+
+
+def global_dr1_loss(ens: MontageEnsemble, real_stack: torch.Tensor,
+                    draws: Draws, aug_cfg: Optional[AugmentConfig], aug_p,
+                    global_r1_gamma: float = 10.0, use_renderer: bool = True,
+                    real_use_renderer: bool = True
+                    ) -> Tuple[torch.Tensor, Stats, torch.Tensor]:
+    """Global R1: the gradient of the global D's logits with respect to the
+    real layer stack, through the renderer (or composite), the augment pipe
+    and D; the outer gradient reaches D's weights through it.  Returns
+    (loss, stats, mean sign of the real logits)."""
+    real = real_stack.detach().requires_grad_(True)
+    logits = run_global_d(ens, real, aug_cfg, aug_p, draws,
+                          use_renderer and real_use_renderer)
+    r1_grads, = torch.autograd.grad(logits.sum(), real, create_graph=True)
+    r1_penalty = r1_grads.square().sum(dim=(1, 2, 3, 4))
+    loss = r1_penalty.mean() * (global_r1_gamma / 2)
+    return loss, {'Loss/r1_penalty': r1_penalty.mean(),
+                  'Loss/D/reg': loss}, logits.sign().mean()
+
+
+def renderer_loss(ens: MontageEnsemble, z: torch.Tensor,
+                  real_stack: torch.Tensor, draws: Draws,
+                  loss_type: str = 'mse', use_real: bool = True,
+                  style_mixing_prob: float = 0.9
+                  ) -> Tuple[torch.Tensor, Stats]:
+    """The renderer's output against the exact alpha composite of the same
+    layer stack (detached), for the generated stack and, with ``use_real``,
+    the real one.  The generated stack comes from the global forward with
+    ``w_avg`` left as it is (the JAX package discards the stats this
+    forward computes)."""
+    with torch.no_grad():
+        placed, _ = run_global_g(ens, z, draws, style_mixing_prob,
+                                 update_w_avg=False)
+
+    def one(stack):
+        out01 = normalize_zero1(ens.renderer(stack))
+        target = alpha_composite(normalize_zero1(stack)).detach()
+        diff = out01 - target
+        loss = diff.square().mean() if loss_type == 'mse' else diff.abs().mean()
+        return loss, calc_psnr(out01.detach(), target)
+
+    loss, psnr = one(placed)
+    stats = {'Renderer/loss_gen': loss, 'Renderer/psnr_gen': psnr}
+    if use_real:
+        loss_real, psnr_real = one(real_stack)
+        stats.update({'Renderer/loss_real': loss_real,
+                      'Renderer/psnr_real': psnr_real})
+        loss = loss + loss_real
+    return loss, stats

@@ -1,21 +1,33 @@
-"""The MontageGAN training step, local phases.
+"""The MontageGAN all-in-one (AIO) training step.
 
-Port of the local part of ``montage_gan_tpu/training/train_step.py``
-(``TrainHyper``, ``MontageTrainer``; order and semantics of lines 447-588
-and 751-818): for each layer, Gmain, then Greg every ``g_reg_interval``
-steps, then Dmain, then Dr1 every ``d_reg_interval`` steps, each
-regularizer's loss scaled by its interval; gradients scrubbed of NaN/inf;
-one Adam per phase pair with the lazy-regularization lr/β rebalance
-``mb_ratio = r/(r+1)``.  The shared mapping is a parameter of each of the 9
-local-G optimizers, each holding its own moments, as in the reference.  Then
-the EMA of the generator side (with rampup) and the ADA controller.
+Port of ``montage_gan_tpu/training/train_step.py`` (``TrainHyper``,
+``MontageTrainer``; the order and semantics of lines 419-818):
 
-PyTorch updates in place: the ensemble's parameters and buffers (``w_avg``)
-move inside the step, and ``train_step`` returns the state it was given.
-The phases run eagerly; JAX's single traced program and its TPU dispatch
+1. the renderer phase: the renderer against the exact composite, one
+   AMSGrad step (optax's rule, ``AMSGrad`` below);
+2. for each layer, Gmain, then Greg every ``g_reg_interval`` steps, then
+   Dmain, then Dr1 every ``d_reg_interval`` steps, each regularizer's loss
+   scaled by its interval; one Adam per phase pair with the
+   lazy-regularization lr/β rebalance ``mb_ratio = r/(r+1)``; the shared
+   mapping is a parameter of each of the 9 local-G optimizers, each holding
+   its own moments, as in the reference;
+3. every ``global_optimize_interval`` (goi) steps global Gmain (the mapping,
+   the STN and, with ``global_g_optimize_synthesis``, all local Gs, through
+   the renderer and the global D) and global Dmain, each loss scaled by goi,
+   and every ``d_reg_interval · goi`` steps global R1 scaled by that
+   interval; the global G and D have Adams of their own, rebalanced with
+   ``g_reg_interval · goi`` and ``d_reg_interval · goi``;
+4. the EMA of the mapping, the local Gs and the STN (with rampup), and the
+   ADA controller over the 9 local lanes and the global lane ``L``, which
+   counts global D executions only.
+
+Gradients are scrubbed of NaN/inf before every optimizer step.  PyTorch
+updates in place: the ensemble's parameters and buffers (``w_avg``) move
+inside the step, and ``train_step`` returns the state it was given.  The
+phases run eagerly; JAX's single traced program and its TPU dispatch
 machinery (``phase_exec.py``) have no counterpart.  Not ported yet (they
-raise ``NotImplementedError``): the global phases (``train_global=True``),
-the renderer phase, microbatch accumulation and conditional labels.
+raise ``NotImplementedError``): microbatch accumulation and conditional
+labels.
 """
 
 from __future__ import annotations
@@ -81,9 +93,12 @@ class TrainHyper:
 class MontageTrainState:
     """What a step carries besides the ensemble's own parameters."""
     model: MontageEnsemble      # updated in place by the step
-    ema: MontageEnsemble        # generator side only
+    ema: MontageEnsemble        # mapping, local Gs and STN only
     opt_local_g: List[torch.optim.Adam]
     opt_local_d: List[torch.optim.Adam]
+    opt_global_g: Optional[torch.optim.Adam]
+    opt_global_d: Optional[torch.optim.Adam]
+    opt_renderer: Optional['AMSGrad']
     pl_mean: torch.Tensor       # [L]
     aug_p: torch.Tensor         # [L + 1] (9 local pipes + the global pipe)
     ada_sign_sum: torch.Tensor  # [L + 1]
@@ -100,7 +115,42 @@ def _scaled_adam(params, hyper: TrainHyper, reg_interval: Optional[int]):
     return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=hyper.eps)
 
 
-def _apply_grads(opt: torch.optim.Adam, params: Sequence[torch.nn.Parameter],
+class AMSGrad(torch.optim.Optimizer):
+    """``optax.amsgrad``: Adam whose denominator is the running maximum of
+    the bias-corrected second moment, ``nu_max = max(nu_max, nu_hat)``.
+    ``torch.optim.Adam(amsgrad=True)`` keeps the maximum of the raw second
+    moment and divides by the current bias correction afterwards, which
+    differs from the second step on."""
+
+    def __init__(self, params, lr: float, betas: Tuple[float, float],
+                 eps: float):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group['betas']
+            for p in group['params']:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st['step'] = 0
+                    for k in ('mu', 'nu', 'nu_max'):
+                        st[k] = torch.zeros_like(p)
+                st['step'] += 1
+                t, g = st['step'], p.grad
+                st['mu'].mul_(b1).add_(g, alpha=1 - b1)
+                st['nu'].mul_(b2).addcmul_(g, g, value=1 - b2)
+                mu_hat = st['mu'] / (1 - b1 ** t)
+                torch.maximum(st['nu_max'], st['nu'] / (1 - b2 ** t),
+                              out=st['nu_max'])
+                p.sub_(group['lr'] * mu_hat / (st['nu_max'].sqrt()
+                                               + group['eps']))
+
+
+def _apply_grads(opt: torch.optim.Optimizer,
+                 params: Sequence[torch.nn.Parameter],
                  loss: torch.Tensor) -> None:
     """One optimizer step on the gradients of ``loss``.  A parameter the
     loss does not reach gets a zero gradient, as a JAX gradient tree has
@@ -128,13 +178,7 @@ class MontageTrainer:
                  device: Union[str, torch.device] = 'cuda'):
         if ens.local_d is None:
             raise ValueError('training needs MontageEnsemble(cfg, with_d=True)')
-        if hyper.train_global:
-            raise NotImplementedError('the global phases (train_global=True) '
-                                      'are not ported yet')
-        if (hyper.train_renderer and not hyper.bypass_renderer
-                and ens.cfg.renderer_type != 'none'):
-            raise NotImplementedError('the renderer phase is not ported yet')
-        if hyper.microbatch is not None:
+        if hyper.microbatch is not None or hyper.global_microbatch is not None:
             raise NotImplementedError('microbatch accumulation is not ported '
                                       'yet')
         self.ens = ens
@@ -142,6 +186,11 @@ class MontageTrainer:
         self.device = torch.device(device)
         self._local_aug = (hyper.augment if hyper.augment is not None
                            and not hyper.local_noaug else None)
+        self._global_aug = (hyper.augment if hyper.augment is not None
+                            and not hyper.global_noaug else None)
+        self._use_renderer = (not hyper.bypass_renderer
+                              and ens.renderer is not None)
+        self._train_global = hyper.train_global and ens.stn is not None
 
     # ------------------------------------------------------------------
     # State
@@ -152,18 +201,28 @@ class MontageTrainer:
         self.ens.init_weights(seed)
         return self.state_from_variables(self.ens.state_dict())
 
+    def _global_g_params(self) -> List[torch.nn.Parameter]:
+        ens = self.ens
+        params = list(ens.mapping.parameters()) + list(ens.stn.parameters())
+        if self.hyper.global_g_optimize_synthesis:
+            params += list(ens.local_g.parameters())
+        return params
+
     def state_from_variables(self, state_dict) -> MontageTrainState:
         """A fresh state around existing weights (a state dict of the
         ensemble, e.g. from ``utils.weights.state_dict_from_jax``): EMA =
-        copies of the generator side, Adam moments zero, controller zero."""
+        copies of the mapping, the local Gs and the STN, optimizer moments
+        zero, controller zero."""
         set_fp32_precision()
         ens, hyper, dev = self.ens, self.hyper, self.device
         ens.load_state_dict(state_dict)
         ens.to(dev).train()
         num_layers = ens.cfg.num_layers
         ema = MontageEnsemble(ens.cfg)
+        ema.renderer = None
         ema.load_state_dict({k: v for k, v in ens.state_dict().items()
-                             if not k.startswith('local_d.')})
+                             if k.startswith(('mapping.', 'local_g.',
+                                              'stn.'))})
         ema = ema.to(dev).eval().requires_grad_(False)
         opt_g, opt_d = [], []
         if hyper.train_local:
@@ -174,9 +233,23 @@ class MontageTrainer:
                     hyper.g_reg_interval))
                 opt_d.append(_scaled_adam(list(ens.local_d[i].parameters()),
                                           hyper, hyper.d_reg_interval))
+        opt_gg = opt_gd = opt_r = None
+        if self._train_global:
+            goi = hyper.global_optimize_interval
+            opt_gg = _scaled_adam(self._global_g_params(), hyper, None if
+                                  hyper.g_reg_interval is None else
+                                  hyper.g_reg_interval * goi)
+            opt_gd = _scaled_adam(list(ens.global_d.parameters()), hyper,
+                                  None if hyper.d_reg_interval is None else
+                                  hyper.d_reg_interval * goi)
+        if hyper.train_renderer and self._use_renderer:
+            opt_r = AMSGrad(list(ens.renderer.parameters()),
+                            lr=hyper.renderer_lr, betas=hyper.renderer_betas,
+                            eps=hyper.eps)
         zeros = torch.zeros(num_layers + 1, device=dev)
         return MontageTrainState(
             model=ens, ema=ema, opt_local_g=opt_g, opt_local_d=opt_d,
+            opt_global_g=opt_gg, opt_global_d=opt_gd, opt_renderer=opt_r,
             pl_mean=torch.zeros(num_layers, device=dev),
             aug_p=torch.full((num_layers + 1,), float(hyper.augment_p_init),
                              device=dev),
@@ -193,8 +266,9 @@ class MontageTrainer:
 
         Args:
             state: the ``MontageTrainState`` (updated in place, returned).
-            real_stack: ``[B, L, H, W, C]`` reals in [-1, 1] (the global
-                phases' input; unused by the local phases).
+            real_stack: ``[B, L, H, W, C]`` reals in [-1, 1] (the input
+                of the renderer and global phases; unused by the local
+                phases).
             real_crops: per-layer ``[B, h_l, w_l, C]`` centered crops in
                 [-1, 1] (``utils.image_utils.make_batch_for_local_d_np``).
             rng: a ``torch.Generator`` on the trainer's device, or a
@@ -207,27 +281,43 @@ class MontageTrainer:
 
     def partial_step(self, state: MontageTrainState, real_stack,
                      real_crops: Sequence, rng: Union[torch.Generator, Draws],
-                     do_local: bool = True, do_global: bool = False,
-                     do_renderer: bool = False, do_ema_ada: bool = True,
+                     do_local: bool = True, do_global: bool = True,
+                     do_renderer: bool = True, do_ema_ada: bool = True,
                      real_c=None, gen_c=None):
-        """``train_step`` with phase gates.  ``do_global`` and
-        ``do_renderer`` name phases that are not ported yet and raise."""
-        if do_global or do_renderer:
-            raise NotImplementedError('the global and renderer phases are not '
-                                      'ported yet')
+        """``train_step`` with phase gates (the JAX package's, without its
+        host-scheduling refinements)."""
         if real_c is not None or gen_c is not None:
             raise NotImplementedError('conditional labels are not ported yet')
         ens, hyper, dev = self.ens, self.hyper, self.device
         draws = rng if isinstance(rng, Draws) else Draws(rng)
-        crops = [torch.as_tensor(np.asarray(c) if not isinstance(
-            c, torch.Tensor) else c, dtype=torch.float32).to(dev)
-                 for c in real_crops]
+
+        def as_tensor(x):
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.asarray(x))
+            return x.to(device=dev, dtype=torch.float32)
+
+        crops = [as_tensor(c) for c in real_crops]
         batch = crops[0].shape[0]
         stats: Dict[str, torch.Tensor] = {}
         step = state.step
 
-        def z():
-            return draws.normal([batch, ens.cfg.z_dim], 'z')
+        def z(d=draws):
+            return d.normal([batch, ens.cfg.z_dim], 'z')
+
+        need_stack = ((do_renderer and hyper.train_renderer
+                       and self._use_renderer)
+                      or (do_global and self._train_global))
+        stack = as_tensor(real_stack) if need_stack else None
+
+        # ---- the renderer phase
+        if do_renderer and hyper.train_renderer and self._use_renderer:
+            rdraws = draws.scoped('renderer_')
+            loss, st = losses.renderer_loss(
+                ens, z(rdraws), stack, rdraws, hyper.renderer_loss,
+                hyper.renderer_use_real, hyper.style_mixing_prob)
+            _apply_grads(state.opt_renderer,
+                         list(ens.renderer.parameters()), loss)
+            stats.update({k: v.detach() for k, v in st.items()})
 
         if do_local and hyper.train_local:
             g_params = [list(ens.mapping.parameters())
@@ -272,6 +362,9 @@ class MontageTrainer:
                     state.ada_sign_sum[i] += sign_real.detach()
                     state.ada_sign_count[i] += 1.0
 
+        if do_global and self._train_global:
+            self._global_phases(state, stack, draws.scoped('global_'), stats)
+
         if do_ema_ada:
             self._ema_and_ada(state)
             for li, name in enumerate(ens.cfg.layer_names):
@@ -279,10 +372,55 @@ class MontageTrainer:
             stats['Progress/augment_global'] = state.aug_p[-1]
         return state, stats
 
+    def _global_phases(self, state: MontageTrainState, stack: torch.Tensor,
+                       draws: Draws, stats: Dict[str, torch.Tensor]) -> None:
+        """Global Gmain and Dmain every goi steps, global R1 every
+        ``d_reg_interval · goi`` steps; the global D's signs go to lane L."""
+        ens, hyper = self.ens, self.hyper
+        goi = hyper.global_optimize_interval
+        lane = ens.cfg.num_layers
+        aug_p = state.aug_p[lane]
+        batch = stack.shape[0]
+        d_params = list(ens.global_d.parameters())
+
+        def put(st):
+            stats.update({f'global/{k}': v.detach() for k, v in st.items()})
+
+        def count_sign(sign):
+            state.ada_sign_sum[lane] += sign.detach()
+            state.ada_sign_count[lane] += 1.0
+
+        if state.step % goi == 0:
+            loss, st = losses.global_gmain_loss(
+                ens, draws.normal([batch, ens.cfg.z_dim], 'z'), draws,
+                self._global_aug, aug_p, hyper.style_mixing_prob,
+                self._use_renderer)
+            _apply_grads(state.opt_global_g, self._global_g_params(),
+                         loss * float(goi))
+            put(st)
+            loss, st, sign = losses.global_dmain_loss(
+                ens, draws.normal([batch, ens.cfg.z_dim], 'z'), stack, draws,
+                self._global_aug, aug_p, hyper.style_mixing_prob,
+                self._use_renderer, hyper.global_d_real_use_renderer)
+            _apply_grads(state.opt_global_d, d_params, loss * float(goi))
+            put(st)
+            count_sign(sign)
+        if hyper.d_reg_interval is not None and hyper.global_r1_gamma != 0:
+            interval = hyper.d_reg_interval * goi
+            if state.step % interval == 0:
+                loss, st, sign = losses.global_dr1_loss(
+                    ens, stack, draws, self._global_aug, aug_p,
+                    hyper.global_r1_gamma, self._use_renderer,
+                    hyper.global_d_real_use_renderer)
+                _apply_grads(state.opt_global_d, d_params,
+                             loss * float(interval))
+                put(st)
+                count_sign(sign)
+
     @torch.no_grad()
     def _ema_and_ada(self, state: MontageTrainState) -> None:
-        """EMA of the generator side with rampup, then the ADA controller;
-        advances ``state.step``."""
+        """EMA of the mapping, the local Gs and the STN with rampup, then
+        the ADA controller; advances ``state.step``."""
         hyper = self.hyper
         cur_nimg = (state.step + 1.0) * hyper.batch_size
         ema_nimg = hyper.ema_kimg * 1000.0

@@ -80,7 +80,8 @@ def load_jax_snapshot(path: str) -> Tuple[MontageConfig, Dict[str, Any]]:
 def load_network(path: str, device='cpu') -> Tuple[MontageConfig,
                                                    MontageEnsemble]:
     """A port checkpoint, or a JAX EMA snapshot (``.msgpack`` with its
-    ``.json``), as (config, model in eval mode on ``device``)."""
+    ``.json``), as (config, model in eval mode on ``device``).  A snapshot
+    saved without its renderer gives a model without one."""
     base = path[:-len('.msgpack')] if path.endswith('.msgpack') else path
     if path.endswith('.msgpack') or os.path.exists(base + '.json'):
         cfg, tree = load_jax_snapshot(path)
@@ -90,5 +91,7 @@ def load_network(path: str, device='cpu') -> Tuple[MontageConfig,
         cfg = MontageConfig.from_dict(ckpt['config'])
         state_dict = ckpt['state_dict']
     model = MontageEnsemble(cfg)
+    if not any(k.startswith('renderer.') for k in state_dict):
+        model.renderer = None
     model.load_state_dict(state_dict)
     return cfg, model.to(device).eval().requires_grad_(False)

@@ -42,6 +42,13 @@ def make_batch_for_pos_estimator(list_of_bhwc: Sequence[torch.Tensor],
                        dim=1)
 
 
+def calc_psnr(x: torch.Tensor, y: torch.Tensor,
+              data_range: float = 1.0) -> torch.Tensor:
+    """Peak signal-to-noise ratio in dB of ``x`` against ``y``."""
+    mse = (x - y).square().mean()
+    return 10.0 * torch.log10(data_range ** 2 / mse)
+
+
 def stack_layer_to_channel(x: torch.Tensor) -> torch.Tensor:
     """[B, L, H, W, C] → [B, H, W, L*C] (channel index = l*C + c)."""
     b, l, h, w, c = x.shape

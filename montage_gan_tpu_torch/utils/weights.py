@@ -11,9 +11,10 @@ same conversion ``montage_gan_tpu/utils/torch_export.py`` makes):
   * every resample_filter buffer is ``setup_filter([1, 3, 3, 1])``.
 
 ``state_dict_from_jax`` takes the variables as nested dicts of numpy arrays
-(``mapping``, ``local_g[i]`` with ``params`` and ``noise``, ``stn``, as a
-JAX EMA snapshot holds them, and ``local_d[i]`` as a train state holds
-them), and returns the state dict of ``models.ensemble.MontageEnsemble``.
+(``mapping``, ``local_g[i]`` with ``params`` and ``noise``, ``stn`` and
+``renderer``, as a JAX EMA snapshot holds them, and ``local_d[i]`` and
+``global_d`` as a train state holds them), and returns the state dict of
+``models.ensemble.MontageEnsemble``.
 """
 
 from __future__ import annotations
@@ -159,11 +160,38 @@ def discriminator_state_dict(variables: Dict[str, Any],
     return out
 
 
+def renderer_state_dict(variables: Dict[str, Any],
+                        renderer_type: str = 'tanh') -> 'OrderedDict':
+    """A JAX renderer's variables → the state dict of the port's renderer,
+    whose shared mid block appears under each of its names."""
+    params = variables['params']
+    if renderer_type in ('tanh', 'sigmoid'):
+        names = {'block': ['block.0', 'cnn.2.0', 'cnn.3.0', 'cnn.4.0'],
+                 'conv_in': ['cnn.0'], 'conv_out': ['cnn.5']}
+    elif renderer_type == 'subpixel':
+        names = {'block': ['block.0', 'cnn.5.0', 'cnn.6.0'],
+                 'conv_down1': ['cnn.1'], 'conv_down2': ['cnn.3'],
+                 'conv_out': ['cnn.7']}
+    else:
+        raise ValueError(f'unknown renderer type {renderer_type!r}')
+    flat = {}
+    for ours, aliases in names.items():
+        for name in aliases:
+            flat[name] = (_conv_w(params[ours]['kernel']),
+                          _t(params[ours]['bias']))
+    out: 'OrderedDict' = OrderedDict()
+    # the module order: block.0, then cnn.* by position
+    for name in sorted(flat, key=lambda n: (n != 'block.0', n)):
+        out[f'{name}.weight'], out[f'{name}.bias'] = flat[name]
+    return out
+
+
 def state_dict_from_jax(cfg, tree: Dict[str, Any]) -> 'OrderedDict':
-    """JAX variables (``mapping``, ``local_g``, ``local_d`` if present,
-    ``stn``) → the state dict of ``MontageEnsemble(cfg, with_d='local_d' in
-    tree)``.  Other entries (``global_d``, ``renderer``) are not ported yet
-    and are ignored."""
+    """JAX variables (``mapping``, ``local_g``, and where present
+    ``local_d``, ``stn``, ``global_d``, ``renderer``) → the state dict of
+    ``MontageEnsemble(cfg, with_d='local_d' in tree)``, without the
+    renderer where the tree has none (a JAX EMA snapshot may leave it
+    out)."""
     out: 'OrderedDict' = OrderedDict()
     for k, v in mapping_state_dict(tree['mapping']).items():
         out[f'mapping.{k}'] = v
@@ -182,4 +210,12 @@ def state_dict_from_jax(cfg, tree: Dict[str, Any]) -> 'OrderedDict':
     if cfg.train_global:
         for k, v in stn_state_dict(tree['stn']).items():
             out[f'stn.{k}'] = v
+        if 'global_d' in tree:
+            for k, v in discriminator_state_dict(
+                    tree['global_d'], cfg.base_init_res).items():
+                out[f'global_d.{k}'] = v
+    if cfg.renderer_type != 'none' and 'renderer' in tree:
+        for k, v in renderer_state_dict(tree['renderer'],
+                                        cfg.renderer_type).items():
+            out[f'renderer.{k}'] = v
     return out

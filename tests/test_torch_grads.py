@@ -36,6 +36,7 @@ jmod = importlib.import_module('montage_gan_tpu.ops.modulated_conv')
 jup = importlib.import_module('montage_gan_tpu.ops.upfirdn2d')
 from montage_gan_tpu_torch.ops import affine_warp as taw
 from montage_gan_tpu_torch.ops import bias_act as tba
+from montage_gan_tpu_torch.ops import composite as tcomp
 from montage_gan_tpu_torch.ops import conv2d_resample as tconv
 from montage_gan_tpu_torch.ops import filters as tfilters
 from montage_gan_tpu_torch.ops import grid_sample as tgs
@@ -280,20 +281,43 @@ def _emulated_warp_transpose(g, theta, h, w, up, taps):
     return dx
 
 
+def emulated_composite(layers, translations, pad_value=0.0):
+    """What K5' computes: the plain version's taps and lerp weights, then
+    the A-over-B recurrence in layer order, each step rounded."""
+    tcomp.kernel.launches += 1
+    b, l, h, w, c = layers.shape
+    moved = tgs.translate_sample(
+        layers.reshape(b * l, h, w, c),
+        translations.clamp(-1, 1).reshape(b * l, 2),
+        pad_value=pad_value).reshape(b, l, h, w, c)
+    canvas = torch.zeros(b, h, w, c, dtype=layers.dtype)
+    for i in range(l):
+        la, ca = moved[:, i, ..., 3:], canvas[..., 3:]
+        keep = ca * (1.0 - la)
+        ao = la + keep
+        co = (moved[:, i, ..., :3] * la + canvas[..., :3] * keep) / torch.where(
+            ao == 0, torch.ones_like(ao), ao)
+        canvas = torch.cat([torch.where(ao == 0, 0.0, co), ao], -1)
+    return canvas
+
+
 def emulate_kernels(monkeypatch):
     """Route CPU tensors through the CUDA path (the autograd Functions), with
     each kernel entry point replaced by its emulation above, counted on the
     kernel's own launch counter."""
-    for mod in (tba, tup, taw):
+    for mod in (tba, tup, taw, tcomp):
         monkeypatch.setattr(mod, 'takes_plain', lambda x: False)
     monkeypatch.setattr(tba, 'bias_act_cuda', _emulated_bias_act)
     monkeypatch.setattr(tba, 'bias_act_grad_cuda', _emulated_bias_act_grad)
     monkeypatch.setattr(tup, 'upfirdn2d_cuda', _emulated_upfirdn2d)
     monkeypatch.setattr(taw, 'warp_forward_cuda', _emulated_warp_forward)
     monkeypatch.setattr(taw, 'warp_transpose_cuda', _emulated_warp_transpose)
+    monkeypatch.setattr(tcomp, 'translate_and_composite_cuda',
+                        emulated_composite)
     kernels = {'bias_act': tba.kernel, 'bias_act_grad': tba.grad_kernel,
                'upfirdn2d': tup.kernel, 'warp_forward': taw.forward_kernel,
-               'warp_transpose': taw.transpose_kernel}
+               'warp_transpose': taw.transpose_kernel,
+               'composite': tcomp.kernel}
     for k in kernels.values():
         monkeypatch.setattr(k, 'launches', 0)
     return kernels

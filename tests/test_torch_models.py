@@ -9,6 +9,8 @@ order); bfloat16 blocks ``atol 3e-2`` (bfloat16 rounds at other places in
 the two frameworks).
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -28,10 +30,17 @@ from montage_gan_tpu_torch.models import synthesis as tsyn
 from montage_gan_tpu_torch.utils import weights
 from montage_gan_tpu_torch.utils.calc_res import calc_init_res
 
+from test_torch_train import FAST_COMPILE
+
 torch.set_num_threads(1)
 
 ATOL = 1e-4
 ATOL_BF16 = 3e-2
+
+
+def _jit(fn, **static):
+    return jax.jit(functools.partial(fn, **static),
+                   compiler_options=FAST_COMPILE)
 
 
 def _np_tree(tree):
@@ -73,9 +82,10 @@ def test_mapping_with_truncation_matches_jax(global_mapping):
         jnet = jmapping.MappingNetwork(**kw)
         tnet = tmapping.MappingNetwork(**kw)
     z = np.random.RandomState(0).randn(4, 16).astype(np.float32)
-    variables = jnet.init({'params': jax.random.PRNGKey(0)}, jnp.asarray(z))
+    variables = _jit(jnet.init)({'params': jax.random.PRNGKey(0)},
+                                jnp.asarray(z))
     variables = _perturb(variables, ('bias', 'w_avg'), seed=1)
-    ref = jnet.apply(variables, jnp.asarray(z), truncation_psi=0.7)
+    ref = _jit(jnet.apply, truncation_psi=0.7)(variables, jnp.asarray(z))
     tnet.load_state_dict(weights.mapping_state_dict(_np_tree(variables)))
     out = tnet(torch.from_numpy(z), truncation_psi=0.7)
     assert out.shape == ref.shape
@@ -91,13 +101,13 @@ def test_nonsquare_synthesis_matches_jax(num_fp16_res, atol):
     jnet = jsyn.SynthesisNetwork(**kw)
     tnet = tsyn.SynthesisNetwork(**kw)
     ws = np.random.RandomState(0).randn(2, tnet.num_ws, 16).astype(np.float32)
-    variables = jnet.init({'params': jax.random.PRNGKey(0),
-                           'noise': jax.random.PRNGKey(1)},
-                          jnp.asarray(ws), noise_mode='const')
+    variables = _jit(jnet.init, noise_mode='const')(
+        {'params': jax.random.PRNGKey(0), 'noise': jax.random.PRNGKey(1)},
+        jnp.asarray(ws))
     variables = _perturb(variables, ('bias', 'noise_strength'), seed=2)
     tnet.load_state_dict(weights.synthesis_state_dict(_np_tree(variables)))
     for mode in ('const', 'none'):
-        ref = jnet.apply(variables, jnp.asarray(ws), noise_mode=mode)
+        ref = _jit(jnet.apply, noise_mode=mode)(variables, jnp.asarray(ws))
         out = tnet(torch.from_numpy(ws), noise_mode=mode)
         assert out.shape == ref.shape == (2, 16, 8, 4)
         assert out.dtype == torch.float32
@@ -111,13 +121,14 @@ def test_stn_with_translation_matches_jax():
                     num_stages=2)
     x = np.random.RandomState(0).uniform(-1, 1, (2, 3, 32, 32, 4)) \
         .astype(np.float32)
-    variables = jnet.init({'params': jax.random.PRNGKey(0)}, jnp.asarray(x))
+    variables = _jit(jnet.init)({'params': jax.random.PRNGKey(0)},
+                                jnp.asarray(x))
     # a non-zero translation head (it is zero-initialised)
     variables = _perturb(variables, ('bias',), seed=3, scale=0.3)
     variables = jax.tree_util.tree_map_with_path(
         lambda p, a: a + 0.01 if 'Dense_1' in str(p) and 'kernel' in str(p)
         else a, variables)
-    ref_moved, ref_theta = jnet.apply(variables, jnp.asarray(x))
+    ref_moved, ref_theta = _jit(jnet.apply)(variables, jnp.asarray(x))
     assert float(jnp.abs(ref_theta[..., 2]).max()) > 0.05
     tnet.load_state_dict(weights.stn_state_dict(_np_tree(variables)))
     moved, theta = tnet(torch.from_numpy(x))
@@ -131,13 +142,13 @@ def test_conv2d_layer_down_matches_jax():
     tnet = tlayers.Conv2dLayer(5, 6, kernel_size=3, activation='lrelu',
                                down=2, conv_clamp=256)
     x = np.random.RandomState(0).randn(2, 8, 10, 5).astype(np.float32)
-    variables = _perturb(jnet.init({'params': jax.random.PRNGKey(0)},
-                                   jnp.asarray(x)), ('bias',), seed=4)
+    variables = _perturb(_jit(jnet.init)({'params': jax.random.PRNGKey(0)},
+                                         jnp.asarray(x)), ('bias',), seed=4)
     p = _np_tree(variables)['params']
     tnet.load_state_dict({'weight': torch.from_numpy(
                               p['weight'].transpose(3, 2, 0, 1).copy()),
                           'bias': torch.from_numpy(p['bias']),
                           'resample_filter': tnet.resample_filter},
                          strict=True)
-    ref = jnet.apply(variables, jnp.asarray(x))
+    ref = _jit(jnet.apply)(variables, jnp.asarray(x))
     _close(tnet(torch.from_numpy(x)), ref)

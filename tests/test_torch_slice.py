@@ -20,6 +20,7 @@ such an edge).
 
 import ast
 import dataclasses
+import functools
 import os
 from pathlib import Path
 
@@ -39,6 +40,8 @@ from montage_gan_tpu_torch.models.ensemble import MontageConfig, MontageEnsemble
 from montage_gan_tpu_torch.utils import checkpoint as tckpt
 from montage_gan_tpu_torch.utils import serving as tserving
 from montage_gan_tpu_torch.utils.weights import state_dict_from_jax
+
+from test_torch_train import FAST_COMPILE
 
 torch.set_num_threads(1)
 
@@ -69,20 +72,23 @@ def _perturb(tree, seed):
 def _micro_jax_tree():
     cfg = JaxConfig(**MICRO)
     ens = JaxEnsemble(cfg)
-    key = jax.random.PRNGKey(0)
-    local_g = []
-    for i, g in enumerate(ens.local_gs):    # the G side of init_variables
-        kg = jax.random.fold_in(key, i)
-        local_g.append(g.init({'params': kg, 'noise': jax.random.fold_in(kg, 7)},
-                              jnp.zeros((1, g.num_ws, cfg.w_dim)),
-                              noise_mode='const'))
-    tree = _perturb({
-        'mapping': ens.mapping.init({'params': jax.random.fold_in(key, 100)},
-                                    jnp.zeros((1, cfg.z_dim))),
-        'local_g': tuple(local_g),
-        'stn': ens.stn.init({'params': jax.random.fold_in(key, 101)},
-                            jnp.zeros((1, cfg.num_layers, 32, 32, 4)))},
-        seed=1)
+
+    @functools.partial(jax.jit, compiler_options=FAST_COMPILE)
+    def init(key):                  # the G side of init_variables
+        local_g = []
+        for i, g in enumerate(ens.local_gs):
+            kg = jax.random.fold_in(key, i)
+            local_g.append(g.init(
+                {'params': kg, 'noise': jax.random.fold_in(kg, 7)},
+                jnp.zeros((1, g.num_ws, cfg.w_dim)), noise_mode='const'))
+        return {'mapping': ens.mapping.init(
+                    {'params': jax.random.fold_in(key, 100)},
+                    jnp.zeros((1, cfg.z_dim))),
+                'local_g': tuple(local_g),
+                'stn': ens.stn.init({'params': jax.random.fold_in(key, 101)},
+                                    jnp.zeros((1, cfg.num_layers, 32, 32, 4)))}
+
+    tree = _perturb(init(jax.random.PRNGKey(0)), seed=1)
     np_tree = jax.tree_util.tree_map(lambda a: np.array(a, np.float32), tree)
     return cfg, tree, np_tree
 
@@ -162,13 +168,29 @@ def test_random_noise_follows_the_seed(micro):
     assert torch.equal(a, b) and not torch.equal(a, c)
 
 
-def test_generate_cli_matches_jax(micro, tmp_path):
+def _shaped_snapshot_template(monkeypatch):
+    """The JAX snapshot loader builds its template with an eager
+    ``init_variables`` (hundreds of op-by-op compiles) and then overwrites
+    every leaf with the snapshot's; zeros of the shapes that init traces give
+    the same structure and so the same load."""
+    eager = JaxEnsemble.init_variables
+
+    def init_variables(self, key, batch=1, on_cpu=True):
+        shapes = jax.eval_shape(
+            lambda k: eager(self, k, batch=batch, on_cpu=False), key)
+        return jax.tree_util.tree_map(
+            lambda s: np.zeros(s.shape, s.dtype), shapes)
+    monkeypatch.setattr(JaxEnsemble, 'init_variables', init_variables)
+
+
+def test_generate_cli_matches_jax(micro, tmp_path, monkeypatch):
     from click.testing import CliRunner
     from PIL import Image
 
     from montage_gan_tpu.cli.generate import main as jax_generate
     from montage_gan_tpu_torch.cli.generate import main as port_generate
 
+    _shaped_snapshot_template(monkeypatch)
     cfg, tree, np_tree = micro
     snap = str(tmp_path / 'ema')
     jckpt.save_ema_snapshot(snap, cfg, tree)
@@ -204,13 +226,15 @@ def test_generate_cli_matches_jax(micro, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """No module of the port imports jax, flax or the JAX package (read from
-    the source: this process has them all loaded)."""
+    """No module of the port, and not chip_smoke.py, imports jax, flax,
+    optax or the JAX package (read from the source: this process has them
+    all loaded)."""
     root = Path(__file__).resolve().parent.parent / 'montage_gan_tpu_torch'
     banned = ('jax', 'jaxlib', 'flax', 'optax', 'montage_gan_tpu')
     # build/ is not source: it holds the kernels compiled at run time
     sources = [p for p in root.rglob('*.py')
                if (root / 'build') not in p.parents]
+    sources.append(root.parent / 'chip_smoke.py')
     found = []
     for path in sorted(sources):
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -222,6 +246,6 @@ def test_port_imports_no_jax():
                 continue
             for name in names:
                 if name.split('.')[0] in banned:
-                    found.append(f'{path.relative_to(root)}: {name}')
+                    found.append(f'{path.relative_to(root.parent)}: {name}')
     assert not found, found
     assert len(sources) >= 15

@@ -76,7 +76,7 @@ def _jax_draws(cfg, key):
     return z, pl
 
 
-def _record_grads(monkeypatch):
+def record_grads(monkeypatch):
     """For each parameter, the smallest |gradient| / (tensor's largest)
     over the phases of the step, per entry."""
     ratio = {}
@@ -131,7 +131,7 @@ def _port_step(cfg, np_tree, key, monkeypatch):
                               **HYPER)
     trainer = ttrain.MontageTrainer(tens, hyper, device='cpu')
     state = trainer.state_from_variables(tens.state_dict())
-    ratio = _record_grads(monkeypatch)
+    ratio = record_grads(monkeypatch)
     z, pl = _jax_draws(cfg, key)
     state, stats = trainer.train_step(state, None, _crops(cfg),
                                       InjectedDraws(z=z, pl_noise=pl))
@@ -199,10 +199,10 @@ def test_train_step_kernel_path_and_launches(monkeypatch):
 
     plain = run()
     kernels = emulate_kernels(monkeypatch)
-    ratio = _record_grads(monkeypatch)
+    ratio = record_grads(monkeypatch)
     emulated = run()
     expect = chip_smoke.expected_train_launches(emulated, hyper, 2)
-    assert {k: v.launches for k, v in kernels.items()} == expect
+    assert {k: kernels[k].launches for k in expect} == expect
     ref = dict(plain.named_parameters())
     for name, p in emulated.named_parameters():
         keep = ratio[id(p)] >= SMALL_GRAD

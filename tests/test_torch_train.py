@@ -269,15 +269,16 @@ def inject_jax_synthesis_noise(monkeypatch):
 
 
 class InjectedDraws(Draws):
-    """The port's draws with the synthesis noise and, where given, the
-    latent z and the path-length noise of each phase, in phase order."""
+    """The port's draws with the synthesis noise (of every scope) and, where
+    given, the latent z and the path-length noise of each phase, in phase
+    order."""
 
     def __init__(self, z=(), pl_noise=()):
         super().__init__(torch.Generator().manual_seed(0))
         self.queue = {'z': list(z), 'pl_noise': list(pl_noise)}
 
     def normal(self, shape, kind):
-        if kind == 'synthesis_noise':
+        if kind.endswith('synthesis_noise'):
             return torch.from_numpy(fixed_noise(shape))
         if self.queue.get(kind):
             out = torch.from_numpy(np.array(self.queue[kind].pop(0)))
