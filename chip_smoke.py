@@ -10,7 +10,13 @@ Phases, in order; each raises on failure, and the script then exits non-zero:
    ``sm_90a``, one process per source, all started together.
 3. kernels: K1' bias_act and K2' upfirdn2d against their plain PyTorch
    versions on the card, at the main paths' shapes and at odd ones, with TF32
-   off.  Times are the median of 20 runs after warm-up, from CUDA events.
+   off, each variant of both (K1': ring, vector, scalar; K2': up2, down2,
+   generic) with the variant the wrapper took checked.  Times (here and
+   below) are device times per call with L2 cold
+   (``montage_gan_tpu_torch/tools/timing.py::device_ms``): 256 MB read
+   before each call, CUDA events around the call alone, the samples queued
+   behind a sleep kernel so the host's launch time is hidden; the median of
+   25 samples.
 4. warp: K3' against the plain warp (upsample, then gather) at the training
    path's main shape and geometries, the adjoint identity of K4' and K4'
    against the plain version's gradient.
@@ -36,8 +42,9 @@ Phases, in order; each raises on failure, and the script then exits non-zero:
    renderer phase, the local phases, global Gmain/Dmain/R1 through the STN,
    the tanh renderer and the global D, EMA, ADA over 10 lanes) at batch 8
    through ``MontageTrainer`` with ``TrainHyper()`` defaults, with the exact
-   launch counts of K1'-K4' over the 5 steps, and one more step split by
-   phase.
+   launch counts of K1'-K4' over the 5 steps, K1''s and K2''s launches by
+   variant (K2''s generic variant never runs there), the bytes each
+   kernel's launches moved, and one more step split by phase.
 12. aio cross-device: the global Gmain, Dmain and R1 losses and the renderer
    loss with their gradients on a micro ensemble with a tanh renderer and a
    global D, CPU (plain) against the card (kernels).
@@ -53,9 +60,10 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import time
+
+from montage_gan_tpu_torch.tools.timing import PEAK_BYTES, card_line, device_ms
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH = 8
@@ -92,9 +100,8 @@ TOL_TRAIN_GRAD = 1e-3
 # alpha 1.9e-6 on a test input); the recurrence has no such cancellation.
 TOL_COMPOSITE = dict(rtol=1e-5, atol=1e-6)
 
-# H100 SXM peaks for the bounds (NVIDIA's data sheet): HBM3 bytes/s and
-# float32 FLOP/s outside the tensor cores.
-PEAK_BYTES = 3.35e12
+# H100 SXM peak float32 FLOP/s outside the tensor cores (NVIDIA's data
+# sheet), for the bounds beside PEAK_BYTES.
 PEAK_F32 = 67e12
 TRAIN_STEPS = 5
 
@@ -113,33 +120,6 @@ def log(msg=''):
     print(msg, flush=True)
 
 
-def card_line():
-    """``name, power.limit`` as nvidia-smi reports them."""
-    out = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def median_ms(fn, iters=20, warmup=3):
-    """Median device time of ``fn`` over ``iters`` runs, from CUDA events."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def bound(nbytes, flops):
     """(least ms, what bounds it): bytes over the memory rate against
     float32 operations over the peak rate."""
@@ -155,7 +135,7 @@ def backward_ms(out, inp, cotangent):
     """Median time of autograd's backward alone through an already built
     graph (the plain version of a backward kernel)."""
     import torch
-    return median_ms(lambda: torch.autograd.grad(out, inp, cotangent,
+    return device_ms(lambda: torch.autograd.grad(out, inp, cotangent,
                                                  retain_graph=True))
 
 
@@ -175,7 +155,7 @@ def compare(label, kernel_fn, plain_fn, tol, timed=False):
     torch.testing.assert_close(out, ref, **tol, msg=lambda m: f'{label}: {m}')
     ms = plain = None
     if timed:
-        ms, plain = median_ms(kernel_fn), median_ms(plain_fn)
+        ms, plain = device_ms(kernel_fn), device_ms(plain_fn)
     times = f'  kernel {ms:.4f} ms  plain {plain:.4f} ms' if timed else ''
     log(f'  ok  {label}: max_abs_err {err:.3g} '
         f'(rtol {tol["rtol"]}, atol {tol["atol"]}){times}')
@@ -194,17 +174,51 @@ def phase_bias_act(dev, card):
         return compare(label, lambda: ba.bias_act_cuda(x, b, **kw),
                        lambda: ba.bias_act_ref(x, b, **kw), tol, timed)
 
+    def variant_of(label, x, b, **kw):
+        """The variant the wrapper takes for these inputs (one launch)."""
+        before = dict(ba.kernel.variants)
+        ba.bias_act_cuda(x, b, **kw)
+        got = [k for k, n in ba.kernel.variants.items()
+               if n != before.get(k, 0)]
+        log(f'      {label}: variant {got[0]}')
+        return got[0]
+
     log(f'[kernels] bias_act (K1\')  card: {card}')
     # The synthesis layers' epilogue at 256 px (bf16 blocks, 64 channels).
-    main = case('[8,256,256,64] bf16 lrelu gain sqrt2 clamp 256',
-                randn(8, 256, 256, 64, dtype=torch.bfloat16, scale=3.0),
-                randn(64, dtype=torch.bfloat16), TOL_BF16, timed=True,
-                act='lrelu', gain=math.sqrt(2), clamp=256.0)
+    x = randn(8, 256, 256, 64, dtype=torch.bfloat16, scale=3.0)
+    b = randn(64, dtype=torch.bfloat16)
+    kw = dict(act='lrelu', gain=math.sqrt(2), clamp=256.0)
+    main = case('[8,256,256,64] bf16 lrelu gain sqrt2 clamp 256', x, b,
+                TOL_BF16, timed=True, **kw)
+    if variant_of('[8,256,256,64] bf16', x, b, **kw) != 'ring':
+        raise AssertionError('K1\' takes the ring at its main shape')
+    # The 128 px blocks' epilogue (128 channels).
+    x = randn(8, 128, 128, 128, dtype=torch.bfloat16, scale=3.0)
+    b = randn(128, dtype=torch.bfloat16)
+    case('[8,128,128,128] bf16 lrelu gain sqrt2 clamp 256', x, b, TOL_BF16,
+         timed=True, **kw)
+    variant_of('[8,128,128,128] bf16', x, b, **kw)
     # An affine (style) layer, and the global mapping's last FC (512 x 9).
-    case('[8,512] f32 linear', randn(8, 512), randn(512), TOL_F32,
-         timed=True)
+    x, b = randn(8, 512), randn(512)
+    case('[8,512] f32 linear', x, b, TOL_F32, timed=True)
+    variant_of('[8,512] f32', x, b)
     case('[8,4608] f32 lrelu', randn(8, 4608), randn(4608), TOL_F32,
          timed=True, act='lrelu')
+    # The ring at odd channel counts: C above the staged-bias cap, C whose
+    # vector stride wraps mid-chunk, no bias; a short last chunk.
+    for shape, dtype, act, bias in (
+            ((2, 64, 9000), torch.float32, 'relu', True),
+            ((140001, 24), torch.bfloat16, 'selu', True),
+            ((300, 12, 768), torch.float32, 'tanh', True),
+            (((1 << 20) + 4,), torch.float32, 'elu', False)):
+        x = randn(*shape, dtype=dtype, scale=2.0)
+        b = randn(shape[-1], dtype=dtype) if bias else None
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        label = f'{list(shape)} {str(dtype)[6:]} {act}' + (
+            '' if bias else ' no bias')
+        case(label, x, b, tol, act=act, clamp=0.5 if act == 'tanh' else None)
+        if variant_of(label, x, b, act=act) != 'ring':
+            raise AssertionError(f'{label}: expected the ring')
     # Odd shapes: every activation, C not a multiple of the vector width,
     # an unaligned view, no bias.
     for act in sorted(ba.activation_funcs):
@@ -222,6 +236,7 @@ def phase_bias_act(dev, card):
 
 def phase_upfirdn2d(dev, card):
     import torch
+    import torch.nn.functional as F
     from montage_gan_tpu_torch.ops import filters
     from montage_gan_tpu_torch.ops import upfirdn2d as up
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -231,30 +246,84 @@ def phase_upfirdn2d(dev, card):
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, device=dev, generator=g).to(dtype)
 
-    def case(label, x, f, tol, timed=False, **kw):
-        return compare(label, lambda: up.upfirdn2d_cuda(x, f, **kw),
-                       lambda: up.upfirdn2d_ref(x, f, **kw), tol, timed)
+    def case(label, x, f, tol, timed=False, variant=None, **kw):
+        before = dict(up.kernel.variants)
+        got = compare(label, lambda: up.upfirdn2d_cuda(x, f, **kw),
+                      lambda: up.upfirdn2d_ref(x, f, **kw), tol, timed)
+        took = {k for k, n in up.kernel.variants.items()
+                if n != before.get(k, 0)}
+        if variant is not None and took != {variant}:
+            raise AssertionError(f'{label}: took {took}, expected {variant}')
+        return got
 
     log(f'[kernels] upfirdn2d (K2\')  card: {card}')
     # The ToRGB skip: upsample2d(img, [4,4] filter) = up 2, pad [2,1,2,1],
     # gain 4, on the 256 px nets' 128 px image.
     main = case('[8,128,128,4] f32 upsample2d 4x4 filter',
                 randn(8, 128, 128, 4), f2d, TOL_F32_FIR, timed=True,
-                up=2, padding=[2, 1, 2, 1], gain=4.0)
+                variant='up2', up=2, padding=[2, 1, 2, 1], gain=4.0)
+    # Its gradient: the same filter flipped, down 2, pad 1, from the 256 px
+    # image's cotangent.
+    dy = randn(8, 256, 256, 4)
+    down = case('[8,256,256,4] -> [8,128,128,4] f32 down 2 (the skip\'s '
+                'gradient)', dy, f2d, TOL_F32_FIR, timed=True,
+                variant='down2', down=2, padding=1, gain=4.0,
+                flip_filter=True)
+    w = (f2d * 4.0)[None, None].repeat(4, 1, 1, 1)
+    dyc = dy.permute(0, 3, 1, 2)
+
+    def lib():
+        return F.conv2d(dyc, w, stride=2, padding=1, groups=4)
+    torch.testing.assert_close(
+        lib().permute(0, 2, 3, 1),
+        up.upfirdn2d_cuda(dy, f2d, down=2, padding=1, gain=4.0,
+                          flip_filter=True), **TOL_F32_FIR)
+    lib_ms = device_ms(lib)
+    log(f'  library: depthwise F.conv2d stride 2 {lib_ms:.4f} ms (same '
+        f'downsample)')
+    backward = (*down, *bound(nbytes(dy) * 5 // 4, 8 * 4 * dy.numel() // 4),
+                lib_ms)
+    # Edge cases of the tiled variants: H and W not multiples of the tile,
+    # C = 3 and 5, bfloat16, a 1-D filter of 4 taps, a footprint above 48 KB.
+    f1d4 = filters.setup_filter([1, 3, 3, 1], separable=True, device=dev)
+    for label, x, f, kw, v in (
+            ('[3,37,23,4] f32 up 2', randn(3, 37, 23, 4), f2d,
+             dict(up=2, padding=[2, 1, 2, 1], gain=4.0), 'up2'),
+            ('[3,74,46,4] f32 down 2', randn(3, 74, 46, 4), f2d,
+             dict(down=2, padding=1, gain=4.0), 'down2'),
+            ('[2,33,31,3] f32 up 2 C=3', randn(2, 33, 31, 3), f2d,
+             dict(up=2, padding=[2, 1, 2, 1], gain=4.0), 'up2'),
+            ('[2,35,29,5] f32 down 2 C=5', randn(2, 35, 29, 5), f2d,
+             dict(down=2, padding=1), 'down2'),
+            ('[2,20,9,5] f32 up 2 1-D 4 taps', randn(2, 20, 9, 5), f1d4,
+             dict(up=2, padding=[2, 1, 2, 1], gain=4.0), 'up2'),
+            ('[2,20,18,20] f32 down 2 C=20 (> 48 KB)', randn(2, 20, 18, 20),
+             f2d, dict(down=2, padding=1), 'down2')):
+        case(label, x, f, TOL_F32_FIR, variant=v, **kw)
+    for label, x, kw, v in (
+            ('[2,33,31,4] bf16 up 2', (2, 33, 31, 4),
+             dict(up=2, padding=[2, 1, 2, 1], gain=4.0), 'up2'),
+            ('[2,33,31,8] bf16 up 2 flip (16-byte pixels)', (2, 33, 31, 8),
+             dict(up=2, padding=[2, 1, 2, 1], gain=4.0, flip_filter=True),
+             'up2'),
+            ('[2,70,66,3] bf16 down 2', (2, 70, 66, 3),
+             dict(down=2, padding=1), 'down2')):
+        case(label, randn(*x, dtype=torch.bfloat16), f2d, TOL_BF16,
+             variant=v, **kw)
     case('[3,17,13,5] f32 down 2 pad 1', randn(3, 17, 13, 5), f2d,
-         TOL_F32_FIR, down=2, padding=1)
+         TOL_F32_FIR, variant='down2', down=2, padding=1)
     case('[2,9,11,3] f32 1-D 8 taps up 2 pad 3 gain 2', randn(2, 9, 11, 3),
-         f1d, TOL_F32_FIR, up=2, padding=3, gain=2.0)
+         f1d, TOL_F32_FIR, variant='generic', up=2, padding=3, gain=2.0)
     case('[2,9,11,3] f32 1-D up [2,1] down [1,2] flip', randn(2, 9, 11, 3),
-         f1d, TOL_F32_FIR, up=[2, 1], down=[1, 2], padding=[3, 4, -1, 2],
-         flip_filter=True)
+         f1d, TOL_F32_FIR, variant='generic', up=[2, 1], down=[1, 2],
+         padding=[3, 4, -1, 2], flip_filter=True)
     case('[2,10,7,6] f32 crop pad [-1,2,0,-2]', randn(2, 10, 7, 6), f2d,
-         TOL_F32_FIR, padding=[-1, 2, 0, -2])
+         TOL_F32_FIR, variant='generic', padding=[-1, 2, 0, -2])
     case('[2,33,31,3] bf16 upsample2d flip', randn(2, 33, 31, 3,
                                                    dtype=torch.bfloat16),
-         f2d, TOL_BF16, up=2, padding=[2, 1, 2, 1], gain=4.0,
+         f2d, TOL_BF16, variant='up2', up=2, padding=[2, 1, 2, 1], gain=4.0,
          flip_filter=True)
-    return main
+    return main, backward
 
 
 def library_upsample_ms(dev):
@@ -275,7 +344,7 @@ def library_upsample_ms(dev):
         return F.conv_transpose2d(xc, w, stride=2, padding=1, groups=4)
     ref = up.upfirdn2d_cuda(x, f2d, up=2, padding=[2, 1, 2, 1], gain=4.0)
     torch.testing.assert_close(lib().permute(0, 2, 3, 1), ref, **TOL_F32_FIR)
-    ms = median_ms(lib)
+    ms = device_ms(lib)
     log(f'  library: depthwise conv_transpose2d {ms:.4f} ms (same upsample)')
     return ms
 
@@ -341,7 +410,7 @@ def phase_warp(dev, card):
         line = f'  ok  K4\' {label}: max_abs_err {err:.3g} ' \
             f'(rtol 1e-5, atol {1e-5 * scale:.3g})'
         if main:
-            t_ms = median_ms(lambda: aw.warp_transpose_cuda(g, theta, ph, pw,
+            t_ms = device_ms(lambda: aw.warp_transpose_cuda(g, theta, ph, pw,
                                                             2, taps))
             t_plain = backward_ms(yr, xr, g)
             line += f'  kernel {t_ms:.4f} ms  plain (autograd backward) ' \
@@ -427,7 +496,7 @@ def phase_grads(dev, card):
                    lambda: torch.autograd.grad(yr, xr, dy,
                                                retain_graph=True)[0],
                    TOL_BF16)
-    t_ms = median_ms(lambda: ba.bias_act_grad_cuda(dy, None, None, y, **kw))
+    t_ms = device_ms(lambda: ba.bias_act_grad_cuda(dy, None, None, y, **kw))
     t_plain = backward_ms(yr, xr, dy)
     log(f'  [8,256,256,64] bf16 order 1: kernel {t_ms:.4f} ms  plain '
         f'(autograd backward) {t_plain:.4f} ms  card: {card}')
@@ -641,7 +710,7 @@ def phase_slice(card, kernels, cfg, device='cuda'):
 
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
-        k.launches = 0
+        k.reset()
     placed, img = fn(z)
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in kernels.items()}
@@ -718,7 +787,7 @@ def phase_composite(card, model, z):
     log(f'[composite] K5\' translate and composite  [{b},{l},{h},{w},4] '
         f'f32, shifts in [{shifts.min().item():.4f}, '
         f'{shifts.max().item():.4f}]  card: {card}')
-    comp.kernel.launches = 0
+    comp.kernel.reset()
     img = comp.translate_and_composite_fused(layers, shifts)
     torch.cuda.synchronize()
     launches = comp.kernel.launches
@@ -739,9 +808,9 @@ def phase_composite(card, model, z):
         return err
 
     err = case(f'[{b},{l},{h},{w},4] sampling stack', layers, shifts, 0.0)
-    t_ms = median_ms(lambda: comp.translate_and_composite_cuda(layers,
+    t_ms = device_ms(lambda: comp.translate_and_composite_cuda(layers,
                                                                shifts))
-    t_plain = median_ms(lambda: comp.translate_and_composite_ref(layers,
+    t_plain = device_ms(lambda: comp.translate_and_composite_ref(layers,
                                                                  shifts))
     # two calls that compute the same function for pad 0 (the grid and the
     # NCHW copy are made outside the timed region); a check that they do,
@@ -757,7 +826,7 @@ def phase_composite(card, model, z):
             b, l, h, w, 4))
     torch.testing.assert_close(premultiplied(two_calls()), premultiplied(img),
                                rtol=0, atol=1e-3)
-    t_two = median_ms(two_calls)
+    t_two = device_ms(two_calls)
     bound_ms, bound_by = bound(nbytes(layers, shifts, img),
                                70 * layers.numel() // 4)
     log(f'  kernel {t_ms:.4f} ms  plain {t_plain:.4f} ms  F.grid_sample + '
@@ -861,7 +930,7 @@ def phase_train(card, kernels, cfg, device='cuda'):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
-        k.launches = 0
+        k.reset()
     times = []
     for step in range(TRAIN_STEPS):
         phases = ['Gmain'] + (['Greg'] if step % hyper.g_reg_interval == 0
@@ -884,6 +953,7 @@ def phase_train(card, kernels, cfg, device='cuda'):
 
     expect = expected_train_launches(model, hyper, TRAIN_STEPS)
     log(f'  launches over {TRAIN_STEPS} steps {launches}, expected {expect}')
+    log_variants(kernels)
     for name, n in launches.items():
         if n == 0 or n != expect[name]:
             raise AssertionError(f'{name}: {n} launches on the training path, '
@@ -899,6 +969,15 @@ def phase_train(card, kernels, cfg, device='cuda'):
         f'{BATCH / mid:.2f} images/s; peak memory {peak / 2**30:.2f} GiB  '
         f'card: {card}')
     return launches
+
+
+def log_variants(kernels):
+    """K1''s and K2''s launches by variant, and the bytes of every kernel's
+    launches (each input read once, each output written once)."""
+    for name in ('bias_act', 'upfirdn2d'):
+        log(f'  {name} launches by variant {dict(kernels[name].variants)}')
+    log('  bytes moved (GB) ' + ', '.join(
+        f'{name} {k.bytes / 1e9:.3f}' for name, k in kernels.items()))
 
 
 def cpu_draws(seed, device):
@@ -1049,7 +1128,7 @@ def phase_aio_train(card, kernels, cfg, device='cuda'):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
-        k.launches = 0
+        k.reset()
     times = []
     for step in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -1073,14 +1152,19 @@ def phase_aio_train(card, kernels, cfg, device='cuda'):
                 f'{stats["global/Loss/r1_penalty"].item():.6g}, theta '
                 f'constraint {stats["global/Loss/STN/theta_constrain"]}')
     launches = {name: k.launches for name, k in kernels.items()}
+    variants = {name: dict(k.variants) for name, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
 
     expect = expected_train_launches(model, hyper, TRAIN_STEPS)
     log(f'  launches over {TRAIN_STEPS} steps {launches}, expected {expect}')
+    log_variants(kernels)
     for name, n in launches.items():
         if n == 0 or n != expect[name]:
             raise AssertionError(f'{name}: {n} launches on the AIO path, '
                                  f'expected {expect[name]}')
+    if variants['upfirdn2d'].get('generic', 0) != 0:
+        raise AssertionError('K2\' took its generic variant on the AIO path: '
+                             f'{variants["upfirdn2d"]}')
     check_moved(model, before)
     if state.step != TRAIN_STEPS or not torch.isfinite(
             model.mapping.w_avg).all():
@@ -1102,7 +1186,7 @@ def phase_aio_train(card, kernels, cfg, device='cuda'):
                         1)
     log('  step 5 by phase (synchronised after each; ms): ' + ', '.join(
         f'{k} {v:.1f}' for k, v in split.items()))
-    return launches
+    return launches, variants
 
 
 def phase_aio_cross_device(device='cuda'):
@@ -1199,7 +1283,7 @@ def main():
     k1 = phase_bias_act('cuda', card)
     x = torch.empty(8, 256, 256, 64, dtype=torch.bfloat16)
     checks = {'bias_act': (*k1, *bound(2 * nbytes(x), 5 * x.numel()), None)}
-    k2 = phase_upfirdn2d('cuda', card)
+    k2, k2_backward = phase_upfirdn2d('cuda', card)
     x = torch.empty(8, 128, 128, 4)
     checks['upfirdn2d'] = (*k2, *bound(5 * nbytes(x), 8 * 4 * x.numel()),
                            library_upsample_ms('cuda'))
@@ -1215,7 +1299,7 @@ def main():
     phase_cross_device()
     phase_train(card, kernels, MontageConfig(train_global=False))
     phase_train_cross_device()
-    launches = phase_aio_train(card, kernels, MontageConfig())
+    launches, variants = phase_aio_train(card, kernels, MontageConfig())
     launches['composite'] = composite_launches
     phase_aio_cross_device()
 
@@ -1236,6 +1320,14 @@ def main():
                      'launches': launches[name], 'max_abs_err': err,
                      'ms': ms, 'plain_ms': plain, 'bound_ms': bound_ms,
                      'bound_by': bound_by, 'library_ms': lib})
+        if name in ('bias_act', 'upfirdn2d'):
+            rows[-1]['launches_by_variant'] = variants[name]
+    # K2''s gradient at its main shape (down2), beside the forward's row
+    err, ms, plain, bound_ms, bound_by, lib = k2_backward
+    rows[[r['name'] for r in rows].index('upfirdn2d')]['backward'] = {
+        'shape': '[8,256,256,4] -> [8,128,128,4] f32 down 2',
+        'max_abs_err': err, 'ms': ms, 'plain_ms': plain,
+        'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': lib}
     log(json.dumps({'kernels': rows}))
     log(card_line())
     log(json.dumps({'ok': True, 'device': {

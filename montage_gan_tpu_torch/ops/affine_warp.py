@@ -35,7 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .cuda import CudaKernel, stream_handle, takes_plain
+from .cuda import CudaKernel, stream_handle, takes_plain, tensor_bytes
 from .grid_sample import affine_grid, grid_sample
 from .upfirdn2d import upsample2d_ref
 
@@ -94,7 +94,8 @@ def _launch(kern: CudaKernel, src: torch.Tensor, theta: torch.Tensor,
                          'at most 8 stored samples per axis')
     kern.launch(src.data_ptr(), theta.data_ptr(), taps.data_ptr(),
                 dst.data_ptr(), n, in_hw[0], in_hw[1], c, out_hw[0],
-                out_hw[1], taps.shape[0], up, stream_handle(src.device))
+                out_hw[1], taps.shape[0], up, stream_handle(src.device),
+                nbytes=tensor_bytes(src, theta, taps, dst))
 
 
 def warp_forward_cuda(x: torch.Tensor, theta: torch.Tensor, out_h: int,

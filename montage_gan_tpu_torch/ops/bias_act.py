@@ -15,19 +15,29 @@ Two paths, chosen by the device of ``x``:
     backward gives the second order (R1 and path length need it).  This is
     the reference's ``BiasActCuda`` / ``BiasActCudaGrad`` pair.  The bias
     gradient is the input gradient summed over the non-channel dims.
+
+K1''s forward has three variants, chosen from the parameters alone by
+``_stream_plan`` and counted apart on ``kernel.variants``: ``ring`` (a
+persistent grid streaming 8 KB chunks through shared memory with bulk
+copies) for tensors of at least ``RING_MIN_BYTES`` that allow 16-byte
+vectors, ``vector`` (one 16-byte vector per thread) for smaller ones, and
+``scalar`` for unaligned views and rows that are not a whole number of
+vectors.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from .cuda import CudaKernel, stream_handle, takes_plain
+from .cuda import CudaKernel, stream_handle, takes_plain, tensor_bytes
 
 # Activation registry (montage_gan_tpu/ops/bias_act.py:31-50); `code` is the
 # activation's number in csrc/bias_act.cu.  `ref` names the saved tensor the
@@ -59,11 +69,86 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 kernel = CudaKernel('bias_act', 'mgt_bias_act', [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-    ctypes.c_float, ctypes.c_void_p])
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 # The gradient entry point of the same library, counted on its own.
 grad_kernel = CudaKernel('bias_act', 'mgt_bias_act_grad', [
     ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 4
     + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+
+
+# The forward's variants (csrc/bias_act.cu MgtBiasActVariant) and the
+# ring's shape, constants of csrc/bias_act.cu: 8 KB chunks, 6 stages, 256
+# threads a block, up to 4 blocks an SM.
+VARIANT_CODES = {'scalar': 0, 'vector': 1, 'ring': 2}
+RING_CHUNK = 8192              # bytes per stage and per bulk copy
+RING_STAGES = 6
+RING_THREADS = 256
+RING_BLOCKS_PER_SM = 4
+RING_BIAS_CAP = 4608           # channels whose bias is staged as float32
+SM_SHARED_BYTES = 233472       # 228 KB of shared memory an SM, 1 KB a block
+# Smallest tensor the ring takes, in bytes.  Below it the ring's set-up
+# (barriers, bias staging, the pipeline's fill) outweighs its gain
+# (tools/kernel_turns.py --sweep; PERF.md, Findings).
+RING_MIN_BYTES = 4 << 20
+
+
+def _ring_smem(staged_channels: int) -> int:
+    """Shared memory of a ring block (csrc/bias_act.cu ring_smem_bytes)."""
+    return (RING_STAGES * RING_CHUNK + (RING_STAGES * 8 + 15) // 16 * 16
+            + 4 * staged_channels)
+
+
+@dataclass(frozen=True)
+class StreamPlan:
+    """How K1''s forward covers ``nbytes`` of x: the variant (``code`` as
+    the kernel takes it), the bytes the launch moves (x read, y written,
+    the bias read) and, for the ring, the persistent ``grid``, block ``i``
+    taking chunks ``i, i + grid, ...`` of ``RING_CHUNK`` bytes (the last
+    one ``tail`` bytes, all multiples of 16)."""
+    variant: str
+    code: int
+    nbytes: int
+    moved: int
+    grid: int = 0
+
+    @property
+    def n_chunks(self) -> int:
+        return -(-self.nbytes // RING_CHUNK)
+
+    @property
+    def tail(self) -> int:
+        return self.nbytes - (self.n_chunks - 1) * RING_CHUNK
+
+    def chunks_of(self, block: int) -> range:
+        return range(block, self.n_chunks, self.grid)
+
+    def chunk_span(self, k: int):
+        """Bytes ``[start, stop)`` of chunk ``k``."""
+        return k * RING_CHUNK, min((k + 1) * RING_CHUNK, self.nbytes)
+
+
+@functools.lru_cache(maxsize=1024)
+def _stream_plan(n: int, C: int, itemsize: int, aligned: bool,
+                 bias: bool = True, sms: int = 132) -> StreamPlan:
+    """The variant and chunk plan of K1' for ``n`` elements of ``itemsize``
+    bytes with ``C`` channels, an input 16-byte ``aligned`` or not (the
+    output is a fresh allocation), on a card with ``sms`` SMs."""
+    nbytes = n * itemsize
+    moved = 2 * nbytes + bias * C * itemsize
+    vec = 16 // itemsize
+    if not (aligned and n % vec == 0 and (not bias or C % vec == 0)):
+        return StreamPlan('scalar', 0, nbytes, moved)
+    if nbytes < RING_MIN_BYTES:
+        return StreamPlan('vector', 1, nbytes, moved)
+    smem = _ring_smem(C if bias and C <= RING_BIAS_CAP else 0)
+    per_sm = min(RING_BLOCKS_PER_SM, SM_SHARED_BYTES // (smem + 1024))
+    return StreamPlan('ring', 2, nbytes, moved,
+                      min(per_sm * sms, -(-nbytes // RING_CHUNK)))
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _resolve(act, alpha, gain, clamp):
@@ -107,12 +192,18 @@ def bias_act_cuda(x: torch.Tensor, b: Optional[torch.Tensor] = None,
     _check(x, 'x')
     b = _kernel_bias(x, b, dim)
     y = torch.empty_like(x)
-    if x.numel() == 0:
+    n = x.numel()
+    if n == 0:
         return y
-    kernel.launch(x.data_ptr(), _ptr(b), y.data_ptr(), x.numel(),
-                  1 if b is None else b.shape[0], _DTYPE_CODES[x.dtype],
-                  spec.code, alpha, gain, _clamp_arg(clamp),
-                  stream_handle(x.device))
+    C = 1 if b is None else b.shape[0]
+    xp = x.data_ptr()
+    dev = x.get_device()
+    plan = _stream_plan(n, C, x.element_size(), xp % 16 == 0, b is not None,
+                        _sm_count(dev))
+    kernel.launch(xp, _ptr(b), y.data_ptr(), n, C, _DTYPE_CODES[x.dtype],
+                  spec.code, alpha, gain, _clamp_arg(clamp), plan.code,
+                  plan.grid, stream_handle(dev), variant=plan.variant,
+                  nbytes=plan.moved)
     return y
 
 
@@ -139,11 +230,19 @@ def bias_act_grad_cuda(g: torch.Tensor, x: Optional[torch.Tensor],
     out = torch.empty_like(g)
     if g.numel() == 0:
         return out
+    # what the kernel reads: x and b for swish, y for the other
+    # activations and the clamp mask, dy for order 2
+    reads_x = act == 'swish'
+    reads_y = act not in ('linear', 'swish') or clamp is not None
     grad_kernel.launch(g.data_ptr(), _ptr(x), _ptr(b), _ptr(y), _ptr(dy),
                        out.data_ptr(), g.numel(),
                        1 if b is None else b.shape[0], _DTYPE_CODES[g.dtype],
                        spec.code, order, alpha, gain, _clamp_arg(clamp),
-                       stream_handle(g.device))
+                       stream_handle(g.device),
+                       nbytes=tensor_bytes(g, x if reads_x else None,
+                                           b if reads_x else None,
+                                           y if reads_y else None,
+                                           dy if order == 2 else None, out))
     return out
 
 
@@ -167,9 +266,11 @@ def _kernel_bias(x: torch.Tensor, b: Optional[torch.Tensor],
         raise ValueError('bias_act kernel takes a [C] bias along the last '
                          f'dim; got bias {tuple(b.shape)}, x {tuple(x.shape)}, '
                          f'dim {dim}')
-    if b.device != x.device:
+    if b.get_device() != x.get_device():
         raise ValueError(f'bias on {b.device}, x on {x.device}')
-    return b.detach().to(x.dtype).contiguous()
+    if b.dtype != x.dtype:
+        b = b.to(x.dtype)
+    return b if b.is_contiguous() else b.contiguous()
 
 
 def _ptr(t: Optional[torch.Tensor]):

@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from .cuda import CudaKernel, stream_handle, takes_plain
+from .cuda import CudaKernel, stream_handle, takes_plain, tensor_bytes
 from .grid_sample import translate_sample
 
 kernel = CudaKernel('composite', 'mgt_translate_composite',
@@ -102,7 +102,8 @@ def translate_and_composite_cuda(layers: torch.Tensor,
     translations = translations.contiguous()
     out = torch.empty(b, h, w, 4, dtype=torch.float32, device=layers.device)
     kernel.launch(layers.data_ptr(), translations.data_ptr(), out.data_ptr(),
-                  b, l, h, w, float(pad_value), stream_handle(layers.device))
+                  b, l, h, w, float(pad_value), stream_handle(layers.device),
+                  nbytes=tensor_bytes(layers, translations, out))
     return out
 
 

@@ -8,12 +8,14 @@ source is never served by a stale build.  ``build`` starts one ``nvcc`` per
 source, all at once.
 
 Every kernel is a :class:`CudaKernel`: the C entry point, its ``ctypes``
-signature and a plain integer count of the launches it made.  A failed build
-or a launch that returns a CUDA error raises; nothing falls back.
+signature, a plain integer count of the launches it made, the same count per
+variant of the kernel, and the bytes those launches had to move.  A failed
+build or a launch that returns a CUDA error raises; nothing falls back.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -94,8 +96,11 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
 class CudaKernel:
     """One C entry point of a ``csrc/`` library, bound on first launch.
 
-    ``launches`` counts the launches this wrapper made; callers that measure
-    a path set it to 0 before and read it after."""
+    ``launches`` counts the launches this wrapper made, ``variants`` the
+    same launches by the variant the wrapper chose, and ``bytes`` the bytes
+    they had to move (each input read once, each output written once, as
+    the wrapper counts them).  Callers that measure a path call ``reset``
+    before and read them after."""
 
     def __init__(self, source: str, symbol: str,
                  argtypes: Sequence[type]):
@@ -103,8 +108,21 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.bytes = 0
+        self.variants: collections.Counter = collections.Counter()
         self._lib = None
         self._fn = None
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.bytes = 0
+        self.variants.clear()
+
+    def count(self, variant: str, nbytes: int) -> None:
+        """Record one launch of ``variant`` that moves ``nbytes``."""
+        self.launches += 1
+        self.variants[variant] += 1
+        self.bytes += int(nbytes)
 
     def _bind(self):
         if self._fn is None:
@@ -118,14 +136,24 @@ class CudaKernel:
             self._lib, self._fn = lib, fn
         return self._fn
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, variant: str = 'kernel', nbytes: int = 0) -> None:
         """Call the entry point (which launches on the given stream and
-        returns ``cudaGetLastError()``); raise if the launch failed."""
-        rc = self._bind()(*args)
+        returns ``cudaGetLastError()``); raise if the launch failed, else
+        count it under ``variant`` with the ``nbytes`` it moves."""
+        rc = (self._fn or self._bind())(*args)
         if rc != 0:
             msg = self._lib.mgt_error_string(rc).decode()
-            raise RuntimeError(f'{self.symbol} failed: CUDA error {rc} ({msg})')
+            raise RuntimeError(f'{self.symbol} ({variant}) failed: CUDA error '
+                               f'{rc} ({msg})')
         self.launches += 1
+        self.variants[variant] += 1
+        self.bytes += nbytes
+
+
+def tensor_bytes(*tensors) -> int:
+    """Bytes of the given tensors (None counts 0): what a launch that reads
+    or writes each once moves."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def takes_plain(x) -> bool:
@@ -135,6 +163,9 @@ def takes_plain(x) -> bool:
 
 
 def stream_handle(device) -> int:
-    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``
+    (a ``torch.device`` or its index), read without building a stream
+    object."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(
+        device if isinstance(device, int) else device.index)

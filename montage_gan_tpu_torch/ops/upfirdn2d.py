@@ -14,6 +14,13 @@ Two paths, chosen by the device of ``x``:
     the reference's transposed padding), and the backward of that is the
     forward again: every gradient order runs the one kernel.
 
+K2' has three variants, chosen from the parameters alone by
+``kernel_variant`` and counted apart on ``kernel.variants``: ``up2`` (up 2,
+down 1) and ``down2`` (up 1, down 2) with a filter of at most 4×4, tiled in
+shared memory (the ToRGB skip, its gradient and its second order), and
+``generic`` for every other parameter set.  ``_tile_plan`` gives the tiled
+variants' geometry, which the kernel computes the same way.
+
 Filters are float32 tensors from ``setup_filter`` (modules keep them as
 buffers on the device), numpy arrays, or None (identity).
 """
@@ -21,14 +28,16 @@ buffers on the device), numpy arrays, or None (identity).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Sequence, Tuple, Union
+from dataclasses import dataclass
+from typing import Iterator, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .cuda import CudaKernel, stream_handle, takes_plain
+from .cuda import CudaKernel, stream_handle, takes_plain, tensor_bytes
 
 IntOrPair = Union[int, Sequence[int]]
 
@@ -36,7 +45,107 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 kernel = CudaKernel('upfirdn2d', 'mgt_upfirdn2d', [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 17
-    + [ctypes.c_float, ctypes.c_void_p])
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+# The variants (csrc/upfirdn2d.cu MgtUpfirdnVariant) and the tiled ones'
+# output tiles, (rows, columns), as csrc/upfirdn2d.cu MgtTile has them.
+VARIANT_CODES = {'generic': 0, 'up2': 1, 'down2': 2}
+TILES = {'up2': (32, 32), 'down2': (16, 32)}
+TILED_FMAX = 4                 # the largest filter side the tiled kernel takes
+MAX_SMEM = 232448              # 227 KB, an H100 block's shared memory
+
+
+def _footprint_side(tile: int, up: int, down: int, f: int) -> int:
+    """Most input samples a run of ``tile`` outputs reads along one axis:
+    the multiples of ``up`` among ``(tile - 1) * down + f`` consecutive
+    upsampled samples."""
+    return ((tile - 1) * down + f + up - 1) // up
+
+
+def _axis_span(t0: int, t1: int, up: int, down: int, pad0: int,
+               f: int) -> Tuple[int, int]:
+    """Input samples ``[lo, hi)`` that outputs ``[t0, t1)`` read along one
+    axis (out-of-image ones included: they are the zero pad)."""
+    lo = -((pad0 - t0 * down) // up)                   # ceil((t0 d - p) / u)
+    hi = ((t1 - 1) * down - pad0 + f - 1) // up + 1
+    return lo, hi
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """Geometry of K2''s tiled variants for one parameter set: one block
+    per ``tile`` of outputs of one image; it stages its input ``footprint``
+    (at most ``footprint`` rows × columns, ``smem_bytes`` with the filter,
+    as float32) in shared memory."""
+    in_hw: Tuple[int, int]
+    out_hw: Tuple[int, int]
+    up: Tuple[int, int]                # (x, y)
+    down: Tuple[int, int]
+    pad0: Tuple[int, int]              # (padx0, pady0)
+    filter_hw: Tuple[int, int]
+    tile: Tuple[int, int]              # (rows, columns)
+    grid: Tuple[int, int]              # (tiles along x, tiles along y)
+    footprint: Tuple[int, int]         # (rows, columns), the most any reads
+    smem_bytes: int
+
+    def tile_box(self, ty: int, tx: int) -> Tuple[int, int, int, int]:
+        """Output rows ``[y0, y1)`` and columns ``[x0, x1)`` of tile
+        (ty, tx), clipped to the output."""
+        th, tw = self.tile
+        y0, x0 = ty * th, tx * tw
+        return (y0, min(y0 + th, self.out_hw[0]), x0,
+                min(x0 + tw, self.out_hw[1]))
+
+    def footprint_of(self, ty: int, tx: int) -> Tuple[int, int, int, int]:
+        """Input rows ``[iy0, iy1)`` and columns ``[ix0, ix1)`` that tile
+        (ty, tx) reads; the block stages them from ``(iy0, ix0)``, samples
+        outside the image as zeros."""
+        y0, y1, x0, x1 = self.tile_box(ty, tx)
+        fh, fw = self.filter_hw
+        iy0, iy1 = _axis_span(y0, y1, self.up[1], self.down[1], self.pad0[1],
+                              fh)
+        ix0, ix1 = _axis_span(x0, x1, self.up[0], self.down[0], self.pad0[0],
+                              fw)
+        return iy0, iy1, ix0, ix1
+
+    def tiles(self) -> Iterator[Tuple[int, int]]:
+        for ty in range(self.grid[1]):
+            for tx in range(self.grid[0]):
+                yield ty, tx
+
+
+@functools.lru_cache(maxsize=256)
+def _tile_plan(h: int, w: int, out_h: int, out_w: int, up: Tuple[int, int],
+               down: Tuple[int, int], pad: Tuple[int, int, int, int], fh: int,
+               fw: int, tile: Tuple[int, int], channels: int = 1) -> TilePlan:
+    """The tiled geometry of K2' (``up``, ``down`` as (x, y); ``pad`` as
+    ``(padx0, padx1, pady0, pady1)``; ``tile`` as (rows, columns))."""
+    th, tw = tile
+    fph = _footprint_side(th, up[1], down[1], fh)
+    fpw = _footprint_side(tw, up[0], down[0], fw)
+    return TilePlan(in_hw=(h, w), out_hw=(out_h, out_w), up=tuple(up),
+                    down=tuple(down), pad0=(pad[0], pad[2]),
+                    filter_hw=(fh, fw), tile=(th, tw),
+                    grid=(-(-out_w // tw), -(-out_h // th)),
+                    footprint=(fph, fpw),
+                    smem_bytes=4 * (TILED_FMAX * TILED_FMAX
+                                    + fph * fpw * channels))
+
+
+def kernel_variant(up: Tuple[int, int], down: Tuple[int, int], fh: int,
+                   fw: int, channels: int) -> str:
+    """The variant of K2' that takes these parameters: ``up2`` or
+    ``down2`` for up 2 or down 2 on both axes with a filter of at most
+    4×4 whose footprint fits a block's shared memory, else ``generic``."""
+    name = {((2, 2), (1, 1)): 'up2', ((1, 1), (2, 2)): 'down2'}.get(
+        (tuple(up), tuple(down)))
+    if name is None or fh > TILED_FMAX or fw > TILED_FMAX:
+        return 'generic'
+    tile = TILES[name]
+    need = 4 * (TILED_FMAX * TILED_FMAX
+                + _footprint_side(tile[0], up[1], down[1], fh)
+                * _footprint_side(tile[1], up[0], down[0], fw) * channels)
+    return name if need <= MAX_SMEM else 'generic'
 
 
 def _parse_scaling(scaling: IntOrPair) -> Tuple[int, int]:
@@ -159,11 +268,18 @@ def upfirdn2d_cuda(x: torch.Tensor, f, up: IntOrPair = 1, down: IntOrPair = 1,
         return y
     separable = f.ndim == 1
     tap_gain = math.sqrt(gain) if separable else gain
+    variant = kernel_variant((upx, upy), (downx, downy), fh, fw, c)
+    smem = 0
+    if variant != 'generic':
+        smem = _tile_plan(h, w, out_h, out_w, (upx, upy), (downx, downy),
+                          (padx0, padx1, pady0, pady1), fh, fw,
+                          TILES[variant], c).smem_bytes
     kernel.launch(x.data_ptr(), y.data_ptr(), f.data_ptr(),
                   _DTYPE_CODES[x.dtype], n, h, w, c, out_h, out_w,
                   upx, upy, downx, downy, padx0, pady0, fh, fw,
                   int(separable), int(flip_filter), float(tap_gain),
-                  stream_handle(x.device))
+                  VARIANT_CODES[variant], smem, stream_handle(x.device),
+                  variant=variant, nbytes=tensor_bytes(x, f, y))
     return y
 
 

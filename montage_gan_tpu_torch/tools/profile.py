@@ -22,7 +22,12 @@ seeded random weights, on the card:
 
 Prints the kernel time per family and the 12 longest kernels, the wall time
 with and without the profiler and the busy share (kernel time over the
-unprofiled wall time), with the card's name and power limit.
+unprofiled wall time), with the card's name and power limit.  For each
+hand-written kernel it also prints, over the profiled steps: the kernel
+time and launches per step, the bytes its launches had to move (each input
+read once, each output written once, as the wrappers count them), the bound
+those bytes set (over 3.35 TB/s) and the gap between the two, the largest
+first; K1' and K2' with their launches by variant.
 """
 
 from __future__ import annotations
@@ -30,19 +35,23 @@ from __future__ import annotations
 import argparse
 import collections
 import statistics
-import subprocess
 import time
 
 import numpy as np
 import torch
 
-# (family, substrings of the lower-cased kernel name); the first match wins.
+from .timing import PEAK_BYTES, card_line
+
+# (family, substrings of the lower-cased kernel name); the first match wins,
+# so every variant of a hand-written kernel (bias_act_kernel,
+# bias_act_ring_kernel; upfirdn2d_kernel, upfirdn2d_tiled_kernel) lands in
+# its own family before the library families are tried.
 FAMILIES = (
-    ("K1' bias_act grad", ('bias_act_grad_kernel',)),
-    ("K1' bias_act", ('bias_act_kernel',)),
-    ("K2' upfirdn2d", ('upfirdn2d_kernel',)),
-    ("K3' warp forward", ('warp_forward_kernel',)),
-    ("K4' warp transpose", ('warp_transpose_kernel',)),
+    ("K1' bias_act grad", ('bias_act_grad',)),
+    ("K1' bias_act", ('bias_act',)),
+    ("K2' upfirdn2d", ('upfirdn2d',)),
+    ("K3' warp forward", ('warp_forward',)),
+    ("K4' warp transpose", ('warp_transpose',)),
     ("K5' composite", ('composite_kernel',)),
     ('convolution (cuDNN)', ('conv', 'fprop', 'dgrad', 'wgrad', 'cudnn',
                              'winograd', 'implicit_gemm')),
@@ -57,19 +66,23 @@ BATCH = 8
 SEED = 0
 
 
+def hand_written():
+    """(family, kernel wrapper) of every hand-written kernel."""
+    from ..ops import affine_warp, bias_act, composite, upfirdn2d
+    return (("K1' bias_act", bias_act.kernel),
+            ("K1' bias_act grad", bias_act.grad_kernel),
+            ("K2' upfirdn2d", upfirdn2d.kernel),
+            ("K3' warp forward", affine_warp.forward_kernel),
+            ("K4' warp transpose", affine_warp.transpose_kernel),
+            ("K5' composite", composite.kernel))
+
+
 def family(name: str) -> str:
     low = name.lower()
     for fam, keys in FAMILIES:
         if any(k in low for k in keys):
             return fam
     return 'other'
-
-
-def card_line() -> str:
-    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def kernel_table(prof, calls: int):
@@ -161,8 +174,13 @@ def main(argv=None):
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    kernels = hand_written()
+    for _, k in kernels:
+        k.reset()
     with torch.profiler.profile(activities=acts) as prof:
         prof_ms = timed_ms(run, calls)
+    counted = {fam: (k.launches / calls, k.bytes / calls, dict(k.variants))
+               for fam, k in kernels}
     fam_ms, fam_n, name_ms = kernel_table(prof, calls)
 
     if training:
@@ -187,6 +205,19 @@ def main(argv=None):
     print('  longest kernels:')
     for (fam, name), ms in name_ms.most_common(12):
         print(f'    {ms:9.3f} ms  [{fam}] {name[:160]}')
+    print(f'  hand-written kernels per {unit}: kernel ms, launches, bytes '
+          f'moved, bound (bytes / {PEAK_BYTES / 1e12} TB/s), gap; largest '
+          'gap first')
+    rows = []
+    for fam, (n, nbytes, variants) in counted.items():
+        bound = nbytes / PEAK_BYTES * 1e3
+        rows.append((fam_ms[fam] - bound, fam, n, nbytes, bound, variants))
+    for gap, fam, n, nbytes, bound, variants in sorted(rows, reverse=True):
+        by = f'  by variant {variants}' if len(variants) > 1 or fam in (
+            "K1' bias_act", "K2' upfirdn2d") else ''
+        print(f'    {fam:20s} {fam_ms[fam]:9.3f} ms {n:7.0f} launches '
+              f'(profiler {fam_n[fam]:.0f}) {nbytes / 1e9:8.3f} GB  bound '
+              f'{bound:8.3f} ms  gap {gap:8.3f} ms{by}')
     if phases:
         for label, split in (('steps 9-11', phases),
                              ('step 16 (every regularizer)', reg_phases)):

@@ -19,6 +19,7 @@ kernels, which round once, against plain autograd, which rounds each step)
 ``rtol 3e-2, atol 3e-2``, a few bfloat16 ulps.
 """
 
+import collections
 import importlib
 
 import numpy as np
@@ -205,7 +206,10 @@ def _emulated_bias_act(x, b=None, dim=-1, act='linear', alpha=None,
     if clamp is not None:
         c = _storage_clamp(clamp, x.dtype)
         v = v.clamp(-c, c)
-    tba.kernel.launches += 1
+    plan = tba._stream_plan(x.numel(), 1 if b is None else b.shape[0],
+                            x.element_size(), x.data_ptr() % 16 == 0,
+                            b is not None)
+    tba.kernel.count(plan.variant, plan.moved)
     return v.to(x.dtype)
 
 
@@ -261,8 +265,13 @@ def _emulated_bias_act_grad(g, x, b, y, dy=None, order=1, act='linear',
 
 def _emulated_upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False,
                         gain=1.0):
-    tup.kernel.launches += 1
-    return tup.upfirdn2d_ref(x, f, up, down, padding, flip_filter, gain)
+    y = tup.upfirdn2d_ref(x, f, up, down, padding, flip_filter, gain)
+    fh, fw = tup._filter_size(f)
+    tup.kernel.count(tup.kernel_variant(tup._parse_scaling(up),
+                                        tup._parse_scaling(down), fh, fw,
+                                        x.shape[-1]),
+                     (x.numel() + y.numel()) * x.element_size())
+    return y
 
 
 def _emulated_warp_forward(x, theta, out_h, out_w, up, taps):
@@ -320,6 +329,8 @@ def emulate_kernels(monkeypatch):
                'composite': tcomp.kernel}
     for k in kernels.values():
         monkeypatch.setattr(k, 'launches', 0)
+        monkeypatch.setattr(k, 'bytes', 0)
+        monkeypatch.setattr(k, 'variants', collections.Counter())
     return kernels
 
 

@@ -203,6 +203,8 @@ def test_train_step_kernel_path_and_launches(monkeypatch):
     emulated = run()
     expect = chip_smoke.expected_train_launches(emulated, hyper, 2)
     assert {k: kernels[k].launches for k in expect} == expect
+    # the ToRGB skip and its gradients take K2''s tiled variants only
+    assert kernels['upfirdn2d'].variants['generic'] == 0
     ref = dict(plain.named_parameters())
     for name, p in emulated.named_parameters():
         keep = ratio[id(p)] >= SMALL_GRAD
