@@ -10,7 +10,7 @@ Phases, in order; each raises on failure, and the script then exits non-zero:
    ``sm_90a``, one process per source, all started together.
 3. kernels: K1' bias_act and K2' upfirdn2d against their plain PyTorch
    versions on the card, at the main paths' shapes and at odd ones, with TF32
-   off, each variant of both (K1': ring, vector, scalar; K2': up2, down2,
+   off, each variant of both (K1': vector, scalar; K2': up2, down2,
    generic) with the variant the wrapper took checked.  Times (here and
    below) are device times per call with L2 cold
    (``montage_gan_tpu_torch/tools/timing.py::device_ms``): 256 MB read
@@ -190,8 +190,9 @@ def phase_bias_act(dev, card):
     kw = dict(act='lrelu', gain=math.sqrt(2), clamp=256.0)
     main = case('[8,256,256,64] bf16 lrelu gain sqrt2 clamp 256', x, b,
                 TOL_BF16, timed=True, **kw)
-    if variant_of('[8,256,256,64] bf16', x, b, **kw) != 'ring':
-        raise AssertionError('K1\' takes the ring at its main shape')
+    if variant_of('[8,256,256,64] bf16', x, b, **kw) != 'vector':
+        raise AssertionError('K1\' takes the vector variant at its main '
+                             'shape')
     # The 128 px blocks' epilogue (128 channels).
     x = randn(8, 128, 128, 128, dtype=torch.bfloat16, scale=3.0)
     b = randn(128, dtype=torch.bfloat16)
@@ -204,12 +205,13 @@ def phase_bias_act(dev, card):
     variant_of('[8,512] f32', x, b)
     case('[8,4608] f32 lrelu', randn(8, 4608), randn(4608), TOL_F32,
          timed=True, act='lrelu')
-    # The ring at odd channel counts: C above the staged-bias cap, C whose
-    # vector stride wraps mid-chunk, no bias; a short last chunk.
+    # The vector variant at odd channel counts: C above a block's vectors;
+    # grids that stride over 3.0M and 6.3M vectors with a channel step of
+    # 24 (not 0) per stride; no bias at a length of no whole rows.
     for shape, dtype, act, bias in (
             ((2, 64, 9000), torch.float32, 'relu', True),
-            ((140001, 24), torch.bfloat16, 'selu', True),
-            ((300, 12, 768), torch.float32, 'tanh', True),
+            ((600_000, 40), torch.bfloat16, 'selu', True),
+            ((700_000, 36), torch.float32, 'tanh', True),
             (((1 << 20) + 4,), torch.float32, 'elu', False)):
         x = randn(*shape, dtype=dtype, scale=2.0)
         b = randn(shape[-1], dtype=dtype) if bias else None
@@ -217,8 +219,8 @@ def phase_bias_act(dev, card):
         label = f'{list(shape)} {str(dtype)[6:]} {act}' + (
             '' if bias else ' no bias')
         case(label, x, b, tol, act=act, clamp=0.5 if act == 'tanh' else None)
-        if variant_of(label, x, b, act=act) != 'ring':
-            raise AssertionError(f'{label}: expected the ring')
+        if variant_of(label, x, b, act=act) != 'vector':
+            raise AssertionError(f'{label}: expected the vector variant')
     # Odd shapes: every activation, C not a multiple of the vector width,
     # an unaligned view, no bias.
     for act in sorted(ba.activation_funcs):

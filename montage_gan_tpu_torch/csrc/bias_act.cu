@@ -9,36 +9,33 @@
 // What bounds it on the H100: memory. Each element is read once and written
 // once, with at most a few dozen flops in between (tanh/exp for the smooth
 // activations), far below the ~20 flop/byte at which an H100 stops being
-// bandwidth-bound in float32.  So the design only has to move bytes well.
-// The forward has three variants, chosen by the Python wrapper from the
-// parameters alone (ops/bias_act.py::_stream_plan) and passed in; a variant
-// that does not fit them is refused.  All three compile in the main path's
-// activations (linear, lrelu; the others switch on an integer code per
-// element, uniform across the grid, so the branch never diverges):
-//   * ring, for tensors of RING_MIN_BYTES (ops/bias_act.py) and more whose
-//     rows are whole 16-byte vectors (bias_act_ring_kernel): a persistent
-//     grid of up to 4 blocks per SM, each streaming 8 KB chunks through a
-//     6-stage shared-memory ring with 1-D bulk copies (the Tensor Memory
-//     Accelerator) in both directions, loads with an L2 evict-first hint.
-//     Five chunks a block (160 KB an SM) are in flight while one is
-//     transformed; the bias is staged once per block as float32 in shared
-//     memory (up to RING_BIAS_CAP channels, else read from global memory)
-//     and read as float4.  With fewer resident threads than the vector
-//     kernel, a per-element switch on the activation made the ring
-//     instruction-bound (46% of the byte bound at its main shape);
-//   * vector, for smaller tensors (bias_act_kernel<T, VEC, ACT>): one
+// bandwidth-bound in float32.  So the design only has to move bytes well,
+// and it does: at the main shape ([8,256,256,64] bf16) the vector variant
+// runs at 86% of 3.35 TB/s with L2 cold, the rate a read-once, write-once
+// stream reaches on this card.  A persistent grid streaming 8 KB chunks
+// through shared memory with bulk copies (the Tensor Memory Accelerator)
+// took 0.990-1.033 times its time from 16 to 128 MiB (1.002 at the main
+// shape) and 1.04-1.17 times below, so it was taken out (PERF.md,
+// Findings, PR 5).
+// The forward has two variants, chosen by the Python wrapper from the
+// parameters alone (ops/bias_act.py::_stream_plan) and passed in with the
+// grid; a variant that does not fit them is refused:
+//   * vector (bias_act_kernel<T, VEC, ACT>, VEC = 16 / sizeof(T)): one
 //     16-byte vector (4 float32 or 8 bfloat16 values) per thread per
 //     grid-stride step, neighbouring threads on neighbouring vectors, so
 //     each warp issues fully coalesced 512-byte transactions; x loaded with
-//     the evict-first hint (ld.global.cs), the bias as one 16-byte vector;
+//     an L2 evict-first hint (ld.global.cs: it is read once), the bias as
+//     one 16-byte vector;
 //   * scalar, for rows whose length is not a multiple of the vector width
 //     or unaligned pointers: the same kernel with a vector width of 1.
-// In all three a thread's channel advances by a fixed step with one wrap
-// instead of a 64-bit modulo per vector, and the arithmetic is float32 in
-// registers with one rounding to the storage type on store (the JAX
-// reference rounds bfloat16 after each step; the two agree to 2 bfloat16
-// ulps); the clamp bound is the one the storage type holds, as in the
-// reference (jnp.clip casts it).
+// Both compile in the main path's activations (linear, lrelu); the others
+// switch on an integer code per element, uniform across the grid, so the
+// branch never diverges.  A thread's channel advances by a fixed step with
+// one wrap per grid stride instead of a 64-bit modulo per vector.  The
+// arithmetic is float32 in registers with one rounding to the storage type
+// on store (the JAX reference rounds bfloat16 after each step; the two
+// agree to 2 bfloat16 ulps); the clamp bound is the one the storage type
+// holds, as in the reference (jnp.clip casts it).
 //
 // The gradient kernel is memory bound the same way: it reads the incoming
 // gradient and one or two saved tensors and writes one, 16 bytes per thread
@@ -234,6 +231,8 @@ __device__ __forceinline__ void mgt_transform(float* t, int act, float alpha, fl
     }
 }
 
+constexpr int BIAS_ACT_THREADS = 256;
+
 // Variants vector (VEC = 16 / sizeof(T)) and scalar (VEC = 1): a grid-stride
 // loop, one VEC-element vector per thread per step, neighbouring threads on
 // neighbouring vectors.  The channel of a thread's first element is taken
@@ -263,217 +262,19 @@ __global__ void bias_act_kernel(const T* __restrict__ x, const T* __restrict__ b
     }
 }
 
-// The streaming ring (variant ring): a persistent grid in which every block
-// walks the chunks blockIdx.x, blockIdx.x + gridDim.x, ... of the byte
-// stream.  Thread 0 keeps RING_STAGES - 1 chunks of x in flight with 1-D
-// bulk copies into a ring of shared-memory stages, each completing on the
-// stage's mbarrier; all threads wait there, transform 16 bytes each in place
-// and fence the async proxy; thread 0 then stores the stage back with one
-// bulk copy and, once the previous stage's store has read its buffer
-// (cp.async.bulk.wait_group.read), refills that stage.  In place, one
-// buffer a stage serves both directions, so a ring of a given depth needs
-// half the shared memory of separate input and output stages.  The
-// transform is the vector kernel's, element for element.  8 KB chunks, 6
-// stages and 256 threads were the best of 12 shapes tried on the card
-// (PERF.md, Findings, PR 5).
-constexpr int RING_CHUNK = 8192;        // bytes per stage and per bulk copy
-constexpr int RING_STAGES = 6;
-constexpr int RING_THREADS = 256;
-constexpr int RING_BIAS_CAP = 4608;     // channels staged as float32 (18 KB)
-constexpr int RING_MAX_SMEM = 232448;   // 227 KB, an H100 block's limit
+enum MgtBiasActVariant { BIAS_ACT_SCALAR = 0, BIAS_ACT_VECTOR = 1 };
 
-// Shared memory of a ring block: the stages, their barriers (padded to 16
-// bytes, so that the bias that follows takes 16-byte loads), the bias.
-__host__ __device__ constexpr int ring_smem_bytes(int staged_channels) {
-    return RING_STAGES * RING_CHUNK + (RING_STAGES * 8 + 15) / 16 * 16 + staged_channels * 4;
-}
-
-__device__ __forceinline__ uint32_t mgt_smem(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mgt_mbar_init(uint64_t* bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(mgt_smem(bar)), "r"(count)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mgt_mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(mgt_smem(bar)),
-                 "r"(bytes)
-                 : "memory");
-}
-
-// Wait for the completion of the barrier's phase of the given parity.
-__device__ __forceinline__ void mgt_mbar_wait(uint64_t* bar, uint32_t parity) {
-    uint32_t done = 0;
-    do {
-        asm volatile(
-            "{\n\t.reg .pred p;\n\t"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-            "selp.u32 %0, 1, 0, p;\n\t}"
-            : "=r"(done)
-            : "r"(mgt_smem(bar)), "r"(parity)
-            : "memory");
-    } while (!done);
-}
-
-// A bulk load whose lines L2 may evict first: x is read once.
-__device__ __forceinline__ void mgt_bulk_load(void* dst, const void* src, uint32_t bytes,
-                                              uint64_t* bar) {
-    uint64_t policy;
-    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
-        " [%0], [%1], %2, [%3], %4;"
-        ::"r"(mgt_smem(dst)), "l"(src), "r"(bytes), "r"(mgt_smem(bar)), "l"(policy)
-        : "memory");
-}
-
-__device__ __forceinline__ void mgt_bulk_store(void* dst, const void* src, uint32_t bytes) {
-    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
-                 "r"(mgt_smem(src)), "r"(bytes)
-                 : "memory");
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
+// Launch `variant` on `grid` blocks with the activation ACT compiled in.
 template <typename T, int ACT>
-__global__ void __launch_bounds__(RING_THREADS)
-bias_act_ring_kernel(const T* __restrict__ x, const T* __restrict__ b, T* __restrict__ y,
-                     int64_t nbytes, int C, int act, float alpha, float gain, float clamp) {
+static void launch_act(const T* x, const T* b, T* y, int64_t n, int C, int act, float alpha,
+                       float gain, float clamp, int variant, int grid, cudaStream_t stream) {
     constexpr int VEC = 16 / sizeof(T);
-    constexpr int64_t ELEMS = RING_CHUNK / sizeof(T);
-    using V = MgtVec<T, VEC>;
-    extern __shared__ __align__(128) unsigned char smem[];
-    uint64_t* full = reinterpret_cast<uint64_t*>(smem + RING_STAGES * RING_CHUNK);
-    float* bias_s = reinterpret_cast<float*>(smem + ring_smem_bytes(0));
-    const int tid = threadIdx.x;
-    const int64_t grid = gridDim.x;
-    const int64_t n_chunks = (nbytes + RING_CHUNK - 1) / RING_CHUNK;
-    const int mine = blockIdx.x < n_chunks
-                         ? static_cast<int>((n_chunks - 1 - blockIdx.x) / grid + 1) : 0;
-    const bool staged = b != nullptr && C <= RING_BIAS_CAP;
-    const bool b_vec = (reinterpret_cast<uintptr_t>(b) & 15) == 0;
-    auto chunk_of = [&](int i) { return blockIdx.x + i * grid; };
-    auto chunk_bytes = [&](int64_t k) {
-        const int64_t rest = nbytes - k * RING_CHUNK;
-        return static_cast<uint32_t>(rest < RING_CHUNK ? rest : RING_CHUNK);
-    };
-    auto fetch = [&](int i) {          // this block's i-th chunk into stage i % RING_STAGES
-        const int64_t k = chunk_of(i);
-        uint64_t* bar = full + i % RING_STAGES;
-        mgt_mbar_expect_tx(bar, chunk_bytes(k));
-        mgt_bulk_load(smem + (i % RING_STAGES) * RING_CHUNK,
-                      reinterpret_cast<const unsigned char*>(x) + k * RING_CHUNK,
-                      chunk_bytes(k), bar);
-    };
-
-    if (tid == 0) {
-        for (int s = 0; s < RING_STAGES; ++s) mgt_mbar_init(full + s, 1);
-        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    }
-    if (staged)
-        for (int c = tid; c < C; c += RING_THREADS) bias_s[c] = mgt_to_float(b[c]);
-    __syncthreads();
-    if (tid == 0)
-        for (int i = 0; i < RING_STAGES && i < mine; ++i) fetch(i);
-
-    // The channel of a thread's element advances by `step` per vector
-    // stride and wraps once at most (C % VEC == 0, step < C).
-    const int step = (RING_THREADS * VEC) % C;
-    const int lane_c = (tid * VEC) % C;
-    for (int i = 0; i < mine; ++i) {
-        const int s = i % RING_STAGES;
-        const int64_t k = chunk_of(i);
-        const int n_vec = static_cast<int>(chunk_bytes(k) / 16);
-        mgt_mbar_wait(full + s, (i / RING_STAGES) & 1);
-        int c = static_cast<int>((k * ELEMS) % C) + lane_c;      // once per chunk, 64-bit
-        if (c >= C) c -= C;
-        V* buf = reinterpret_cast<V*>(smem + s * RING_CHUNK);
-#pragma unroll 4
-        for (int v = tid; v < n_vec; v += RING_THREADS) {
-            float t[VEC];
-            mgt_unpack(buf[v], t);
-            if (staged) {                // c % VEC == 0: 16-byte aligned
-#pragma unroll
-                for (int e = 0; e < VEC; e += 4) {
-                    const float4 bv = *reinterpret_cast<const float4*>(bias_s + c + e);
-                    t[e] += bv.x;
-                    t[e + 1] += bv.y;
-                    t[e + 2] += bv.z;
-                    t[e + 3] += bv.w;
-                }
-            } else if (b != nullptr) {
-                mgt_add_bias<T, VEC>(t, b, c, b_vec);
-            }
-            mgt_transform<ACT, VEC>(t, act, alpha, gain, clamp);
-            V yv;
-            mgt_pack(t, yv);
-            buf[v] = yv;
-            c += step;
-            if (c >= C) c -= C;
-        }
-        // make the generic-proxy writes visible to the bulk store
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        __syncthreads();
-        if (tid == 0) {
-            mgt_bulk_store(reinterpret_cast<unsigned char*>(y) + k * RING_CHUNK, buf,
-                           chunk_bytes(k));
-            // refill the previous chunk's stage once its store has read it
-            if (i >= 1 && i - 1 + RING_STAGES < mine) {
-                asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
-                fetch(i - 1 + RING_STAGES);
-            }
-        }
-    }
-    if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-enum MgtBiasActVariant { BIAS_ACT_SCALAR = 0, BIAS_ACT_VECTOR = 1, BIAS_ACT_RING = 2 };
-
-// Launch `variant` with the activation ACT compiled in.  The ring's blocks
-// need more than 48 KB of dynamic shared memory, which must be allowed
-// first, and the most shared memory carved out so that the persistent
-// grid's blocks are resident at once: both once per device and kernel.
-template <typename T, int ACT>
-static cudaError_t launch_act(const T* x, const T* b, T* y, int64_t n, int C, int act,
-                              float alpha, float gain, float clamp, int variant, int grid,
-                              cudaStream_t stream) {
-    constexpr int VEC = 16 / sizeof(T);
-    constexpr int THREADS = 256;
-    switch (variant) {
-        case BIAS_ACT_RING: {
-            static bool allowed[64] = {};
-            int dev = 0;
-            cudaError_t e = cudaGetDevice(&dev);
-            if (e != cudaSuccess) return e;
-            if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-            if (!allowed[dev]) {
-                e = cudaFuncSetAttribute(bias_act_ring_kernel<T, ACT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         RING_MAX_SMEM);
-                if (e == cudaSuccess)
-                    e = cudaFuncSetAttribute(bias_act_ring_kernel<T, ACT>,
-                                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                                             cudaSharedmemCarveoutMaxShared);
-                if (e != cudaSuccess) return e;
-                allowed[dev] = true;
-            }
-            const int smem = ring_smem_bytes(b != nullptr && C <= RING_BIAS_CAP ? C : 0);
-            bias_act_ring_kernel<T, ACT><<<grid, RING_THREADS, smem, stream>>>(
-                x, b, y, n * static_cast<int64_t>(sizeof(T)), C, act, alpha, gain, clamp);
-            break;
-        }
-        case BIAS_ACT_VECTOR:
-            bias_act_kernel<T, VEC, ACT><<<mgt_grid(n / VEC, THREADS), THREADS, 0, stream>>>(
-                x, b, y, n / VEC, C, act, alpha, gain, clamp);
-            break;
-        case BIAS_ACT_SCALAR:
-            bias_act_kernel<T, 1, ACT><<<mgt_grid(n, THREADS), THREADS, 0, stream>>>(
-                x, b, y, n, C, act, alpha, gain, clamp);
-            break;
-        default: return cudaErrorInvalidValue;
-    }
-    return cudaGetLastError();
+    if (variant == BIAS_ACT_VECTOR)
+        bias_act_kernel<T, VEC, ACT><<<grid, BIAS_ACT_THREADS, 0, stream>>>(
+            x, b, y, n / VEC, C, act, alpha, gain, clamp);
+    else
+        bias_act_kernel<T, 1, ACT><<<grid, BIAS_ACT_THREADS, 0, stream>>>(
+            x, b, y, n, C, act, alpha, gain, clamp);
 }
 
 template <typename T>
@@ -487,26 +288,29 @@ static cudaError_t launch(const void* x, const void* b, void* y, int64_t n, int 
     if (clamp >= 0.0f) clamp = mgt_round_to<T>(clamp);
     const bool vec_ok = n % VEC == 0 && (bp == nullptr || C % VEC == 0) && mgt_aligned(x, 16)
                         && mgt_aligned(y, 16);
-    if (variant != BIAS_ACT_SCALAR && !vec_ok) return cudaErrorInvalidValue;
-    if (variant == BIAS_ACT_RING && grid < 1) return cudaErrorInvalidValue;
+    if ((variant != BIAS_ACT_SCALAR && variant != BIAS_ACT_VECTOR)
+        || (variant == BIAS_ACT_VECTOR && !vec_ok) || grid < 1)
+        return cudaErrorInvalidValue;
     if (bp == nullptr) C = 1;
     switch (act) {
         case ACT_LINEAR:
-            return launch_act<T, ACT_LINEAR>(xp, bp, yp, n, C, act, alpha, gain, clamp, variant,
-                                             grid, stream);
+            launch_act<T, ACT_LINEAR>(xp, bp, yp, n, C, act, alpha, gain, clamp, variant, grid,
+                                      stream);
+            break;
         case ACT_LRELU:
-            return launch_act<T, ACT_LRELU>(xp, bp, yp, n, C, act, alpha, gain, clamp, variant,
-                                            grid, stream);
-        default:
-            return launch_act<T, -1>(xp, bp, yp, n, C, act, alpha, gain, clamp, variant, grid,
+            launch_act<T, ACT_LRELU>(xp, bp, yp, n, C, act, alpha, gain, clamp, variant, grid,
                                      stream);
+            break;
+        default:
+            launch_act<T, -1>(xp, bp, yp, n, C, act, alpha, gain, clamp, variant, grid, stream);
     }
+    return cudaGetLastError();
 }
 
 // x, y: n elements of `dtype` (MgtDtype), contiguous; b: C elements of the same
-// dtype or null; clamp < 0 means no clamp.  `variant` (MgtBiasActVariant) as
-// ops/bias_act.py::_stream_plan chooses it; `grid` the ring's persistent
-// grid (ignored by the other variants).  Returns a cudaError_t code.
+// dtype or null; clamp < 0 means no clamp.  `variant` (MgtBiasActVariant) and
+// `grid` (blocks of BIAS_ACT_THREADS threads striding over the vectors) as
+// ops/bias_act.py::_stream_plan chooses them.  Returns a cudaError_t code.
 extern "C" int mgt_bias_act(const void* x, const void* b, void* y, long long n, int C,
                             int dtype, int act, float alpha, float gain, float clamp,
                             int variant, int grid, void* stream) {

@@ -94,7 +94,7 @@ def _launch(kern: CudaKernel, src: torch.Tensor, theta: torch.Tensor,
                          'at most 8 stored samples per axis')
     kern.launch(src.data_ptr(), theta.data_ptr(), taps.data_ptr(),
                 dst.data_ptr(), n, in_hw[0], in_hw[1], c, out_hw[0],
-                out_hw[1], taps.shape[0], up, stream_handle(src.device),
+                out_hw[1], taps.shape[0], up, stream_handle(src.get_device()),
                 nbytes=tensor_bytes(src, theta, taps, dst))
 
 

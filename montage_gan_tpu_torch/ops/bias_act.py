@@ -16,13 +16,11 @@ Two paths, chosen by the device of ``x``:
     the reference's ``BiasActCuda`` / ``BiasActCudaGrad`` pair.  The bias
     gradient is the input gradient summed over the non-channel dims.
 
-K1''s forward has three variants, chosen from the parameters alone by
-``_stream_plan`` and counted apart on ``kernel.variants``: ``ring`` (a
-persistent grid streaming 8 KB chunks through shared memory with bulk
-copies) for tensors of at least ``RING_MIN_BYTES`` that allow 16-byte
-vectors, ``vector`` (one 16-byte vector per thread) for smaller ones, and
-``scalar`` for unaligned views and rows that are not a whole number of
-vectors.
+K1''s forward has two variants, chosen from the parameters alone by
+``_stream_plan`` and counted apart on ``kernel.variants``: ``vector`` (one
+16-byte vector per thread per step) for tensors that allow 16-byte
+vectors, and ``scalar`` for unaligned views and rows that are not a whole
+number of vectors.
 """
 
 from __future__ import annotations
@@ -76,79 +74,46 @@ grad_kernel = CudaKernel('bias_act', 'mgt_bias_act_grad', [
     + [ctypes.c_float] * 3 + [ctypes.c_void_p])
 
 
-# The forward's variants (csrc/bias_act.cu MgtBiasActVariant) and the
-# ring's shape, constants of csrc/bias_act.cu: 8 KB chunks, 6 stages, 256
-# threads a block, up to 4 blocks an SM.
-VARIANT_CODES = {'scalar': 0, 'vector': 1, 'ring': 2}
-RING_CHUNK = 8192              # bytes per stage and per bulk copy
-RING_STAGES = 6
-RING_THREADS = 256
-RING_BLOCKS_PER_SM = 4
-RING_BIAS_CAP = 4608           # channels whose bias is staged as float32
-SM_SHARED_BYTES = 233472       # 228 KB of shared memory an SM, 1 KB a block
-# Smallest tensor the ring takes, in bytes.  Below it the ring's set-up
-# (barriers, bias staging, the pipeline's fill) outweighs its gain
-# (tools/kernel_turns.py --sweep; PERF.md, Findings).
-RING_MIN_BYTES = 4 << 20
-
-
-def _ring_smem(staged_channels: int) -> int:
-    """Shared memory of a ring block (csrc/bias_act.cu ring_smem_bytes)."""
-    return (RING_STAGES * RING_CHUNK + (RING_STAGES * 8 + 15) // 16 * 16
-            + 4 * staged_channels)
+# The forward's variants (csrc/bias_act.cu MgtBiasActVariant), its threads
+# per block (BIAS_ACT_THREADS) and the most blocks it launches (common.cuh
+# mgt_grid's cap: 64 a block's worth of SMs on 132 SMs).
+VARIANT_CODES = {'scalar': 0, 'vector': 1}
+THREADS = 256
+MAX_BLOCKS = 132 * 64
 
 
 @dataclass(frozen=True)
 class StreamPlan:
-    """How K1''s forward covers ``nbytes`` of x: the variant (``code`` as
-    the kernel takes it), the bytes the launch moves (x read, y written,
-    the bias read) and, for the ring, the persistent ``grid``, block ``i``
-    taking chunks ``i, i + grid, ...`` of ``RING_CHUNK`` bytes (the last
-    one ``tail`` bytes, all multiples of 16)."""
+    """How K1''s forward covers ``n`` elements: the variant (``code`` as
+    the kernel takes it), ``vec`` elements a thread takes per step (16
+    bytes, or 1 element), a ``grid`` of ``THREADS``-thread blocks whose
+    thread ``t`` takes vectors ``t, t + stride, ...`` (``stride`` threads
+    in all), and the bytes the launch moves (x read, y written, the bias
+    read)."""
     variant: str
     code: int
-    nbytes: int
+    vec: int
+    grid: int
     moved: int
-    grid: int = 0
 
     @property
-    def n_chunks(self) -> int:
-        return -(-self.nbytes // RING_CHUNK)
-
-    @property
-    def tail(self) -> int:
-        return self.nbytes - (self.n_chunks - 1) * RING_CHUNK
-
-    def chunks_of(self, block: int) -> range:
-        return range(block, self.n_chunks, self.grid)
-
-    def chunk_span(self, k: int):
-        """Bytes ``[start, stop)`` of chunk ``k``."""
-        return k * RING_CHUNK, min((k + 1) * RING_CHUNK, self.nbytes)
+    def stride(self) -> int:
+        return self.grid * THREADS
 
 
 @functools.lru_cache(maxsize=1024)
 def _stream_plan(n: int, C: int, itemsize: int, aligned: bool,
-                 bias: bool = True, sms: int = 132) -> StreamPlan:
-    """The variant and chunk plan of K1' for ``n`` elements of ``itemsize``
+                 bias: bool = True) -> StreamPlan:
+    """The variant and grid of K1' for ``n`` elements of ``itemsize``
     bytes with ``C`` channels, an input 16-byte ``aligned`` or not (the
-    output is a fresh allocation), on a card with ``sms`` SMs."""
-    nbytes = n * itemsize
-    moved = 2 * nbytes + bias * C * itemsize
+    output is a fresh allocation)."""
     vec = 16 // itemsize
+    variant = 'vector'
     if not (aligned and n % vec == 0 and (not bias or C % vec == 0)):
-        return StreamPlan('scalar', 0, nbytes, moved)
-    if nbytes < RING_MIN_BYTES:
-        return StreamPlan('vector', 1, nbytes, moved)
-    smem = _ring_smem(C if bias and C <= RING_BIAS_CAP else 0)
-    per_sm = min(RING_BLOCKS_PER_SM, SM_SHARED_BYTES // (smem + 1024))
-    return StreamPlan('ring', 2, nbytes, moved,
-                      min(per_sm * sms, -(-nbytes // RING_CHUNK)))
-
-
-@functools.lru_cache(maxsize=16)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+        variant, vec = 'scalar', 1
+    grid = max(1, min(-(-(n // vec) // THREADS), MAX_BLOCKS))
+    return StreamPlan(variant, VARIANT_CODES[variant], vec, grid,
+                      (2 * n + bias * C) * itemsize)
 
 
 def _resolve(act, alpha, gain, clamp):
@@ -197,13 +162,11 @@ def bias_act_cuda(x: torch.Tensor, b: Optional[torch.Tensor] = None,
         return y
     C = 1 if b is None else b.shape[0]
     xp = x.data_ptr()
-    dev = x.get_device()
-    plan = _stream_plan(n, C, x.element_size(), xp % 16 == 0, b is not None,
-                        _sm_count(dev))
+    plan = _stream_plan(n, C, x.element_size(), xp % 16 == 0, b is not None)
     kernel.launch(xp, _ptr(b), y.data_ptr(), n, C, _DTYPE_CODES[x.dtype],
                   spec.code, alpha, gain, _clamp_arg(clamp), plan.code,
-                  plan.grid, stream_handle(dev), variant=plan.variant,
-                  nbytes=plan.moved)
+                  plan.grid, stream_handle(x.get_device()),
+                  variant=plan.variant, nbytes=plan.moved)
     return y
 
 
@@ -238,7 +201,7 @@ def bias_act_grad_cuda(g: torch.Tensor, x: Optional[torch.Tensor],
                        out.data_ptr(), g.numel(),
                        1 if b is None else b.shape[0], _DTYPE_CODES[g.dtype],
                        spec.code, order, alpha, gain, _clamp_arg(clamp),
-                       stream_handle(g.device),
+                       stream_handle(g.get_device()),
                        nbytes=tensor_bytes(g, x if reads_x else None,
                                            b if reads_x else None,
                                            y if reads_y else None,

@@ -102,7 +102,8 @@ def translate_and_composite_cuda(layers: torch.Tensor,
     translations = translations.contiguous()
     out = torch.empty(b, h, w, 4, dtype=torch.float32, device=layers.device)
     kernel.launch(layers.data_ptr(), translations.data_ptr(), out.data_ptr(),
-                  b, l, h, w, float(pad_value), stream_handle(layers.device),
+                  b, l, h, w, float(pad_value),
+                  stream_handle(layers.get_device()),
                   nbytes=tensor_bytes(layers, translations, out))
     return out
 

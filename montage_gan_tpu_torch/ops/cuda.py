@@ -145,9 +145,7 @@ class CudaKernel:
             msg = self._lib.mgt_error_string(rc).decode()
             raise RuntimeError(f'{self.symbol} ({variant}) failed: CUDA error '
                                f'{rc} ({msg})')
-        self.launches += 1
-        self.variants[variant] += 1
-        self.bytes += nbytes
+        self.count(variant, nbytes)
 
 
 def tensor_bytes(*tensors) -> int:
@@ -162,10 +160,9 @@ def takes_plain(x) -> bool:
     return x.device.type == 'cpu'
 
 
-def stream_handle(device) -> int:
-    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``
-    (a ``torch.device`` or its index), read without building a stream
-    object."""
+def stream_handle(device: int) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on the CUDA
+    device of index ``device`` (``tensor.get_device()``), read without
+    building a stream object."""
     import torch
-    return torch._C._cuda_getCurrentRawStream(
-        device if isinstance(device, int) else device.index)
+    return torch._C._cuda_getCurrentRawStream(device)

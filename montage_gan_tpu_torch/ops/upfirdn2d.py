@@ -278,7 +278,7 @@ def upfirdn2d_cuda(x: torch.Tensor, f, up: IntOrPair = 1, down: IntOrPair = 1,
                   _DTYPE_CODES[x.dtype], n, h, w, c, out_h, out_w,
                   upx, upy, downx, downy, padx0, pady0, fh, fw,
                   int(separable), int(flip_filter), float(tap_gain),
-                  VARIANT_CODES[variant], smem, stream_handle(x.device),
+                  VARIANT_CODES[variant], smem, stream_handle(x.get_device()),
                   variant=variant, nbytes=tensor_bytes(x, f, y))
     return y
 

@@ -1,22 +1,16 @@
 """K1' and K2' on the card in turns: this tree's wrappers against another
-tree's, and K1''s ring against its vector kernel.
+tree's.
 
-    python -m montage_gan_tpu_torch.tools.kernel_turns --sweep \\
-        --parent _trees/parent
+    python -m montage_gan_tpu_torch.tools.kernel_turns --parent _trees/parent
 
-* ``--parent TREE``: ``TREE`` is the root of another checkout, for example
-  ``git archive <commit> | tar -x -C _trees/parent``.  Each tree's own
-  public wrappers (``ops.bias_act.bias_act_cuda``,
-  ``ops.upfirdn2d.upfirdn2d_cuda``), built from its own ``csrc/`` into its
-  own ``build/``, run in a process of their own, in turns: parent, this
-  tree, this tree, parent.  Each process holds its outputs to its plain
-  versions and reports per case the device time and the host's time per
-  call.  This tree then times the library call that computes the same
-  function, where there is one, and the bound.
-* ``--sweep``: K1' forward with the variant forced, the vector kernel
-  against the ring, in turns (vector, ring, ring, vector), on bfloat16
-  tensors of 64 channels from 1 MiB to 128 MiB and at the two main shapes:
-  where the ring starts to win is ``ops/bias_act.py::RING_MIN_BYTES``.
+``_trees/parent`` is the root of another checkout, for example
+``git archive <commit> | tar -x -C _trees/parent``.  Each tree's own public
+wrappers (``ops.bias_act.bias_act_cuda``, ``ops.upfirdn2d.upfirdn2d_cuda``),
+built from its own ``csrc/`` into its own ``build/``, run in a process of
+their own, in turns: parent, this tree, this tree, parent.  Each process
+holds its outputs to its plain versions and reports per case the device
+time and the host's time per call.  This tree then times the library call
+that computes the same function, where there is one, and the bound.
 
 Times come from ``timing.py``: device times with L2 cold (256 MB read
 before each call, events around the call alone) and host µs per call.
@@ -162,62 +156,15 @@ def turns(parent: Path, card: str) -> None:
         print(line + f'  card: {card}', flush=True)
 
 
-def forced(ba, x, b, variant, **kw):
-    """K1' forward with ``variant`` forced: a measurement, not a path."""
-    spec, alpha, gain = ba._resolve(kw.get('act', 'linear'), None,
-                                    kw.get('gain'), kw.get('clamp'))
-    y = torch.empty_like(x)
-    plan = ba._stream_plan(x.numel(), b.shape[0], x.element_size(), True,
-                           True, ba._sm_count(x.get_device()))
-    grid = plan.grid or min(
-        ba.RING_BLOCKS_PER_SM * ba._sm_count(x.get_device()),
-        plan.n_chunks)
-    ba.kernel.launch(x.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel(),
-                     b.shape[0], ba._DTYPE_CODES[x.dtype], spec.code, alpha,
-                     gain, ba._clamp_arg(kw.get('clamp')),
-                     ba.VARIANT_CODES[variant], grid,
-                     torch.cuda.current_stream().cuda_stream,
-                     variant=variant)
-    return y
-
-
-def sweep(card: str) -> None:
-    from ..ops import bias_act as ba
-    t = timing()
-    g = torch.Generator(device='cuda').manual_seed(1)
-    kw = dict(act='lrelu', clamp=256.0, gain=math.sqrt(2))
-    print(f"[sweep] K1' forward bf16 lrelu clamp 256, device ms (L2 cold), "
-          f'vector | ring | ring | vector  card: {card}', flush=True)
-    shapes = [(mib * (1 << 20) // 128, 64) for mib in
-              (1, 2, 4, 8, 12, 16, 24, 32, 48, 64, 96, 128)]
-    for shape in shapes + [(8, 128, 128, 128), (8, 256, 256, 64)]:
-        x = (torch.randn(*shape, device='cuda', generator=g) * 3).to(
-            torch.bfloat16)
-        b = torch.randn(shape[-1], device='cuda', generator=g).to(
-            torch.bfloat16)
-        ref = ba.bias_act_ref(x, b, **kw)
-        for v in ('vector', 'ring'):
-            torch.testing.assert_close(forced(ba, x, b, v, **kw), ref,
-                                       **TOL[x.dtype])
-        ms = [t.device_ms(lambda v=v: forced(ba, x, b, v, **kw))
-              for v in ('vector', 'ring', 'ring', 'vector')]
-        vec, ring = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
-        bound = 2 * x.numel() * 2 / t.PEAK_BYTES * 1e3
-        print(f'  {list(shape)} ({2 * x.numel() / (1 << 20):.0f} MiB)  '
-              f'{ms[0]:.4f} {ms[1]:.4f} {ms[2]:.4f} {ms[3]:.4f}  '
-              f'ring/vector {ring / vec:.3f}  of bound: vector '
-              f'{100 * bound / vec:.1f}% ring {100 * bound / ring:.1f}%',
-              flush=True)
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--sweep', action='store_true')
     ap.add_argument('--parent', type=Path, default=None,
                     help="the root of another tree's checkout")
     ap.add_argument('--worker', type=Path, default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if (args.parent is None) == (args.worker is None):
+        ap.error('give --parent')
     if not torch.cuda.is_available():
         raise SystemExit('kernel_turns: no CUDA device')
     if args.worker is not None:
@@ -232,10 +179,7 @@ def main(argv=None):
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line or 'smem' in line:
                 print(f'  {name}: {line.strip()}')
-    if args.sweep:
-        sweep(card)
-    if args.parent is not None:
-        turns(args.parent.resolve(), card)
+    turns(args.parent.resolve(), card)
     print(card)
 
 

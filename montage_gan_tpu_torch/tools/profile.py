@@ -43,9 +43,9 @@ import torch
 from .timing import PEAK_BYTES, card_line
 
 # (family, substrings of the lower-cased kernel name); the first match wins,
-# so every variant of a hand-written kernel (bias_act_kernel,
-# bias_act_ring_kernel; upfirdn2d_kernel, upfirdn2d_tiled_kernel) lands in
-# its own family before the library families are tried.
+# so every variant of a hand-written kernel (upfirdn2d_kernel,
+# upfirdn2d_tiled_kernel) lands in its own family before the library
+# families are tried.
 FAMILIES = (
     ("K1' bias_act grad", ('bias_act_grad',)),
     ("K1' bias_act", ('bias_act',)),

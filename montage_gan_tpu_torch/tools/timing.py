@@ -4,9 +4,9 @@
   sample 256 MB are read (five times the H100's 50 MB L2), so the call
   reads its inputs from memory, as a bound in bytes over the memory rate
   assumes; read, not written, so that L2 holds no dirty lines whose write
-  back the call would pay for.  CUDA events bracket the call alone.  The samples are queued
-  behind a sleep kernel that outlasts the host's time to queue them, so
-  the host's launch time is hidden.
+  back the call would pay for.  CUDA events bracket the call alone.  The
+  samples are queued behind a sleep kernel that outlasts the host's time
+  to queue them, so the host's launch time is hidden.
 * ``host_us``: the host's time to issue one call (the Python wrapper, the
   C call, the launch), with no wait on the card.
 * ``card_line``: the card's name and power limit, as ``nvidia-smi`` gives
@@ -17,6 +17,7 @@
 
 from __future__ import annotations
 
+import functools
 import statistics
 import subprocess
 import time
@@ -25,7 +26,6 @@ import torch
 
 PEAK_BYTES = 3.35e12           # H100 SXM HBM3 (NVIDIA's data sheet)
 L2_FLUSH_BYTES = 256 << 20
-_flush_buffers = {}
 
 
 def card_line() -> str:
@@ -36,20 +36,18 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _flush_buffer() -> torch.Tensor:
-    device = torch.cuda.current_device()
-    buf = _flush_buffers.get(device)
-    if buf is None:
-        buf = _flush_buffers[device] = torch.zeros(
-            L2_FLUSH_BYTES // 4, dtype=torch.int32, device='cuda')
-    return buf
+@functools.lru_cache(maxsize=None)
+def _flush_buffer(device: int) -> torch.Tensor:
+    """The buffer read to flush L2 on ``device``, made once."""
+    return torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                       device=device)
 
 
 def device_ms(fn, samples: int = 25, per_sleep: int = 5) -> float:
     """Median device time of one call of ``fn``, L2 flushed before each of
     ``samples`` samples; ``per_sleep`` samples are queued behind each
     sleep kernel (fewer launches pending than the driver's queue holds)."""
-    flush = _flush_buffer()
+    flush = _flush_buffer(torch.cuda.current_device())
     for _ in range(3):
         fn()
     torch.cuda.synchronize()

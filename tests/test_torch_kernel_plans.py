@@ -1,22 +1,20 @@
 """The geometry the port's redesigned kernels are built on, held on the CPU.
 
 K2' (``csrc/upfirdn2d.cu``) stages, per output tile, an input footprint
-that ``ops/upfirdn2d.py::_tile_plan`` describes; K1''s ring
-(``csrc/bias_act.cu``) walks chunks that ``ops/bias_act.py::_stream_plan``
-lays out, deriving each element's channel as ``_ring_channels`` here
-mirrors it.  The
-kernels run only on the card; these tests hold the formulas they share with
-the wrappers:
+that ``ops/upfirdn2d.py::_tile_plan`` describes; K1' (``csrc/bias_act.cu``)
+walks its vectors in a grid-stride loop that ``ops/bias_act.py::_stream_plan``
+sizes, deriving each vector's channel as ``_vector_channels`` here mirrors
+it.  The kernels run only on the card; these tests hold the formulas they
+share with the wrappers:
 
 (a) the output rebuilt tile by tile, each tile by the plain version on its
     footprint alone with the tile's local pads, equals the plain version on
     the whole image (float64, so only the order of a few sums differs);
-(b) the chunk plan covers every byte exactly once, in 16-byte-aligned
-    chunks;
-(c) the bias applied chunk by chunk, from each chunk's channel offset,
-    reproduces the plain version exactly (float32, the same operations),
-    and the vector kernel's channel, stepped per grid stride with one
-    wrap, is each vector's own.
+(b) the grid-stride plan covers every 16-byte vector exactly once, the
+    threads' shares balanced;
+(c) the bias applied vector by vector, from each thread's channel stepped
+    per grid stride with one wrap, reproduces the plain version exactly
+    (the same operations).
 
 Torch only, no JAX; the whole file runs in about a second.
 """
@@ -156,18 +154,18 @@ def test_tile_plan_shared_memory():
 
 # (n elements, C, itemsize, 16-byte aligned, bias) → variant
 PLAN_CASES = [
-    ((8 * 256 * 256 * 64, 64, 2, True, True), 'ring'),     # the main shape
-    ((8 * 128 * 128 * 128, 128, 2, True, True), 'ring'),
-    ((8 * 4608, 4608, 4, True, True), 'vector'),          # below the ring's size
+    ((8 * 256 * 256 * 64, 64, 2, True, True), 'vector'),   # the main shape
+    ((8 * 128 * 128 * 128, 128, 2, True, True), 'vector'),
+    ((8 * 4608, 4608, 4, True, True), 'vector'),
     ((8 * 512, 512, 4, True, True), 'vector'),
-    ((3 * 5 * 7 * 13, 13, 4, True, True), 'scalar'),      # C % 4 != 0
+    ((3 * 5 * 7 * 13, 13, 4, True, True), 'scalar'),        # C % 4 != 0
     ((2 * 3 * 8, 8, 4, False, True), 'scalar'),             # unaligned view
+    ((2 * 9 * 11 * 6, 6, 2, True, True), 'scalar'),         # C % 8 != 0
     ((4 * 1000, 1, 2, True, False), 'vector'),
-    ((1 << 20, 1, 4, True, False), 'ring'),
-    (((1 << 20) + 4, 1, 4, True, False), 'ring'),         # a short last chunk
-    ((300_000 * 12, 12, 4, True, True), 'ring'),
-    ((1 << 19, 1, 4, True, False), 'vector'),             # 2 MB: below the ring
-    ((2 * 512 * 4608, 4608, 4, True, True), 'ring'),      # 3 blocks an SM fit
+    ((1 << 20, 1, 4, True, False), 'vector'),
+    (((1 << 20) + 2, 1, 4, True, False), 'scalar'),         # n % 4 != 0
+    ((300_000 * 12, 12, 4, True, True), 'vector'),
+    ((64 << 20, 64, 2, True, True), 'vector'),      # several grid strides
 ]
 
 
@@ -175,109 +173,73 @@ PLAN_CASES = [
                          ids=[f'{a[0]}x{a[2]}B C{a[1]}' for a, _ in
                               PLAN_CASES])
 def test_stream_plan_covers_every_byte_once(args, variant):
-    n, C, itemsize, align, bias = args
-    plan = tba._stream_plan(n, C, itemsize, align, bias)
+    """Thread t of the grid takes vectors t, t + stride, ...: every vector
+    (16 bytes, or one element for the scalar variant) once, the threads'
+    shares within one of each other, at most csrc/common.cuh's cap of
+    blocks."""
+    n, C, itemsize, aligned, bias = args
+    plan = tba._stream_plan(n, C, itemsize, aligned, bias)
     assert plan.variant == variant
     assert plan.code == tba.VARIANT_CODES[variant]
-    assert plan.nbytes == n * itemsize
-    assert plan.moved == 2 * n * itemsize + bias * C * itemsize
-    if variant != 'ring':
-        return
-    assert tba.RING_CHUNK % 16 == 0 and 0 < plan.tail <= tba.RING_CHUNK
-    assert plan.tail % 16 == 0
-    assert 1 <= plan.grid <= tba.RING_BLOCKS_PER_SM * 132
-    # the persistent grid is resident at once: its blocks fit an SM's
-    # shared memory
-    smem = tba._ring_smem(C if bias and C <= tba.RING_BIAS_CAP else 0)
-    assert -(-plan.grid // 132) * (smem + 1024) <= tba.SM_SHARED_BYTES
-    seen = torch.zeros(plan.nbytes // 16, dtype=torch.int32)
-    counts = []
-    for block in range(plan.grid):
-        ks = plan.chunks_of(block)
-        counts.append(len(ks))
-        for k in ks:
-            start, stop = plan.chunk_span(k)
-            assert start % 16 == 0 and stop % 16 == 0
-            assert 0 < stop - start <= tba.RING_CHUNK
-            seen[start // 16:stop // 16] += 1
-    assert bool((seen == 1).all())
-    assert max(counts) - min(counts) <= 1               # balanced blocks
-    assert plan.chunk_span(plan.n_chunks - 1)[1] - \
-        plan.chunk_span(plan.n_chunks - 1)[0] == plan.tail
-
-
-def _ring_channels(plan, k, C, itemsize):
-    """The channel of each element of chunk ``k`` as csrc/bias_act.cu's ring
-    derives it: once per chunk in 64-bit, then per thread a fixed step per
-    vector with one wrap."""
-    vec = 16 // itemsize
-    start, stop = plan.chunk_span(k)
-    n_vec = (stop - start) // 16
-    threads = tba.RING_THREADS
-    step = threads * vec % C
-    c = (start // itemsize) % C + torch.arange(threads) * vec % C
-    c = torch.where(c >= C, c - C, c)
-    first = torch.empty(n_vec, dtype=torch.long)
-    for j in range(-(-n_vec // threads)):
-        take = min(threads, n_vec - j * threads)
-        first[j * threads:j * threads + take] = c[:take]
-        c = c + step
-        c = torch.where(c >= C, c - C, c)
-    return (first[:, None] + torch.arange(vec)).reshape(-1)
-
-
-# (shape, dtype, act, clamp); large enough for several chunks
-BIAS_CASES = [
-    ((8, 16, 16, 64), torch.float32, 'lrelu', 256.0),
-    ((8, 4608), torch.float32, 'lrelu', None),          # C above a chunk
-    ((3, 40, 96), torch.float32, 'tanh', 0.5),          # C wraps mid-chunk
-    ((300, 12, 12), torch.float32, 'linear', None),     # step 1024 % 12 = 4
-    ((7, 9, 9, 24), torch.bfloat16, 'swish', 1.0),      # step 2048 % 24 = 8
-    ((2, 64, 64, 128), torch.bfloat16, 'lrelu', 256.0),
-]
-
-
-@pytest.mark.parametrize('shape,dtype,act,clamp', BIAS_CASES,
-                         ids=[f'{list(c[0])} {c[1]} {c[2]}'
-                              for c in BIAS_CASES])
-def test_ring_channels_reproduce_bias_act(shape, dtype, act, clamp):
-    gen = torch.Generator().manual_seed(sum(shape))
-    C = shape[-1]
-    x = (torch.randn(*shape, generator=gen) * 2).to(dtype)
-    b = torch.randn(C, generator=gen).to(dtype)
-    itemsize = x.element_size()
-    # the chunk plan as the ring would lay it out, whatever the size
-    plan = tba.StreamPlan('ring', 2, x.numel() * itemsize,
-                          2 * x.numel() * itemsize, grid=5)
-    flat = x.reshape(-1)
-    out = torch.empty_like(flat)
-    per = tba.RING_CHUNK // itemsize
-    assert plan.n_chunks > 1
-    for k in range(plan.n_chunks):
-        ch = _ring_channels(plan, k, C, itemsize)
-        part = flat[k * per:k * per + ch.numel()]
-        assert ch.numel() == part.numel()
-        out[k * per:k * per + ch.numel()] = tba.bias_act_ref(
-            part + b[ch], None, act=act, clamp=clamp)
-    ref = tba.bias_act_ref(x, b, act=act, clamp=clamp)
-    assert torch.equal(out.reshape(shape), ref)
+    assert plan.moved == (2 * n + bias * C) * itemsize
+    assert plan.vec * itemsize == 16 if variant == 'vector' else plan.vec == 1
+    assert n % plan.vec == 0
+    n_vec = n // plan.vec
+    assert 1 <= plan.grid <= tba.MAX_BLOCKS
+    assert plan.grid == tba.MAX_BLOCKS or plan.stride >= n_vec
+    assert plan.stride - tba.THREADS < n_vec or plan.grid == 1
+    owner = torch.arange(n_vec) % plan.stride
+    share = torch.bincount(owner, minlength=min(plan.stride, n_vec))
+    assert int(share.sum()) == n_vec
+    assert int(share.max()) - int(share.min()) <= 1
 
 
 def _vector_channels(n_vec, C, vec, stride):
     """The channel of each vector's first element as csrc/bias_act.cu's
-    vector and scalar kernels derive it: thread ``i`` starts at
-    ``(i * vec) % C`` in 64-bit, then advances by ``(stride * vec) % C``
-    with one wrap per grid stride."""
-    first = torch.empty(n_vec, dtype=torch.long)
+    kernel derives it: thread ``t`` starts at ``(t * vec) % C`` in 64-bit,
+    then adds ``(stride * vec) % C`` per grid stride with one wrap."""
     step = stride * vec % C
-    for i in range(min(stride, n_vec)):
-        c = i * vec % C
-        for j in range(i, n_vec, stride):
-            first[j] = c
-            c += step
-            if c >= C:
-                c -= C
+    c = torch.arange(stride) * vec % C
+    first = torch.empty(n_vec, dtype=torch.long)
+    for j in range(0, n_vec, stride):
+        take = min(stride, n_vec - j)
+        first[j:j + take] = c[:take]
+        c = c + step
+        c = torch.where(c >= C, c - C, c)
     return first
+
+
+# (shape, dtype, act, clamp, threads in the grid); the grids are small, so
+# that every thread steps its channel several times
+BIAS_CASES = [
+    ((8, 16, 16, 64), torch.float32, 'lrelu', 256.0, 768),
+    ((8, 4608), torch.float32, 'lrelu', None, 256),      # C above a stride
+    ((3, 40, 96), torch.float32, 'tanh', 0.5, 500),      # C wraps mid-stride
+    ((300, 12, 12), torch.float32, 'linear', None, 1024),  # step 4096 % 12
+    ((7, 9, 9, 24), torch.bfloat16, 'swish', 1.0, 256),  # step 2048 % 24 = 8
+    ((2, 64, 64, 128), torch.bfloat16, 'lrelu', 256.0, 2560),
+]
+
+
+@pytest.mark.parametrize('shape,dtype,act,clamp,stride', BIAS_CASES,
+                         ids=[f'{list(c[0])} {c[1]} {c[2]}'
+                              for c in BIAS_CASES])
+def test_vector_channels_reproduce_bias_act(shape, dtype, act, clamp,
+                                            stride):
+    """The bias added vector by vector from each thread's stepped channel
+    reproduces the plain version exactly."""
+    gen = torch.Generator().manual_seed(sum(shape))
+    C = shape[-1]
+    x = (torch.randn(*shape, generator=gen) * 2).to(dtype)
+    b = torch.randn(C, generator=gen).to(dtype)
+    vec = 16 // x.element_size()
+    n_vec = x.numel() // vec
+    assert n_vec > 2 * stride
+    ch = (_vector_channels(n_vec, C, vec, stride)[:, None]
+          + torch.arange(vec)).reshape(-1)
+    out = tba.bias_act_ref(x.reshape(-1) + b[ch], None, act=act, clamp=clamp)
+    ref = tba.bias_act_ref(x, b, act=act, clamp=clamp)
+    assert torch.equal(out.reshape(shape), ref)
 
 
 # (vectors, C, elements a vector, threads in the grid)
