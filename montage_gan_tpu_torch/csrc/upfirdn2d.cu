@@ -21,7 +21,8 @@
 // What bounds it on the H100.  Each output of the main path sums 4 of the
 // 16 taps, about 1 flop per byte moved, so the bound is bytes (10.5 MB at
 // [8,128,128,4] up 2: 3.1 us at 3.35 TB/s).  The generic kernel, one
-// thread per element, reached 3-4% of that: its time went to 64-bit
+// thread per element, reached 6% of that (0.052 ms on the card with L2
+// cold, PERF.md, Findings, PR 5): its time went to 64-bit
 // index decoding, a modulo and a division per tap, taps re-read through
 // __ldg with run-time loop bounds, and 4-byte accesses (a 16-byte pixel
 // split over 4 threads).  The tiled kernel removes each of these:
@@ -46,6 +47,12 @@
 //   * stores are 16 bytes a pixel where C * sizeof(T) == 16, neighbouring
 //     threads on neighbouring pixels; index arithmetic is 32-bit from the
 //     block's origin, per-image offsets 64-bit.
+//
+// What bounds the tiled kernel now: latency.  It runs at 34% (up2) and 27%
+// (down2) of the byte bound with L2 cold (PERF.md, Findings, PR 5): a
+// launch is one wave of 512 or 256 blocks, each loading, computing and
+// storing its tile in turn with nothing overlapped, and 10.5 MB is too
+// little traffic for the memory system to reach its rate.
 //
 // The footprint formulas are mirrored by ops/upfirdn2d.py::_tile_plan, whose
 // shared-memory size the wrapper passes in; the launcher recomputes it and
