@@ -18,8 +18,11 @@ Phases, in order; each raises on failure, and the script then exits non-zero:
    behind a sleep kernel so the host's launch time is hidden; the median of
    25 samples.
 4. warp: K3' against the plain warp (upsample, then gather) at the training
-   path's main shape and geometries, the adjoint identity of K4' and K4'
-   against the plain version's gradient.
+   path's main shape and geometries, a 45° rotation, a zoom 2, C = 3 and a
+   singular theta, the adjoint identity of K4' and K4' against the plain
+   version's gradient; each kernel twice on the same inputs, bit for bit;
+   the share of blocks that took the direct path; the two-call yardstick
+   (F.conv_transpose2d + F.grid_sample) at the main shape.
 5. grads: the K1' gradient kernel (orders 1 and 2, float32 and bfloat16)
    and K2''s backward against autograd of the plain versions.
 6. slice: the full-width config ``aio`` sampling path (mapping -> 9 synthesis
@@ -42,8 +45,9 @@ Phases, in order; each raises on failure, and the script then exits non-zero:
    renderer phase, the local phases, global Gmain/Dmain/R1 through the STN,
    the tanh renderer and the global D, EMA, ADA over 10 lanes) at batch 8
    through ``MontageTrainer`` with ``TrainHyper()`` defaults, with the exact
-   launch counts of K1'-K4' over the 5 steps, K1''s and K2''s launches by
-   variant (K2''s generic variant never runs there), the bytes each
+   launch counts of K1'-K4' over the 5 steps, K1''s, K2''s, K3''s and K4''s
+   launches by variant (K2''s generic variant and the warp's direct one
+   never run there), the bytes each
    kernel's launches moved, and one more step split by phase.
 12. aio cross-device: the global Gmain, Dmain and R1 losses and the renderer
    loss with their gradients on a micro ensemble with a tanh renderer and a
@@ -63,7 +67,8 @@ import statistics
 import sys
 import time
 
-from montage_gan_tpu_torch.tools.timing import PEAK_BYTES, card_line, device_ms
+from montage_gan_tpu_torch.tools.timing import (PEAK_BYTES, card_line, device_ms,
+                                                host_us)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH = 8
@@ -351,9 +356,36 @@ def library_upsample_ms(dev):
     return ms
 
 
+def library_warp(x, theta, taps, oh, ow):
+    """The warp's yardstick in two PyTorch calls: a depthwise
+    ``F.conv_transpose2d`` (stride 2, padding k0 = 5, the 4·f⊗f kernel:
+    ``upsample2d``'s ×2 upsample) and ``F.grid_sample`` on the plain
+    version's grid (built outside the timed region).  The port never calls
+    them.  Returns (forward, its output, input NCHW)."""
+    import torch.nn.functional as F
+    from montage_gan_tpu_torch.ops.grid_sample import affine_grid
+    n, _, _, c = x.shape
+    t = taps.shape[0]
+    k0 = t - 1 - (t + 1) // 2
+    w = (4.0 * taps[:, None] * taps[None, :])[None, None].repeat(c, 1, 1, 1)
+    grid = affine_grid(theta, oh, ow)
+    xc = x.permute(0, 3, 1, 2).contiguous()
+
+    def two_calls(v=xc):
+        up = F.conv_transpose2d(v, w, stride=2, padding=k0, groups=c)
+        return F.grid_sample(up, grid, mode='bilinear', padding_mode='zeros',
+                             align_corners=False)
+    return two_calls, xc
+
+
 def phase_warp(dev, card):
     """K3' against the plain warp, K4''s adjoint identity and K4' against
-    the plain version's gradient, at the training path's shapes."""
+    the plain version's gradient, at the training path's shapes and at
+    geometries that send blocks down the direct path (a 45° rotation, a
+    zoom 2) or every block (C = 3, a singular theta); each kernel twice on
+    the same inputs, bit for bit; the share of blocks that took the direct
+    path; at the main shape the times, and the two-call library
+    yardstick."""
     import torch
     from montage_gan_tpu_torch.ops import affine_warp as aw
     from montage_gan_tpu_torch.training import augment as aug
@@ -375,24 +407,54 @@ def phase_warp(dev, card):
         if kind == 'off_plane':
             theta = theta * 1.3
             theta[:, :, 2] = torch.tensor([0.7, -0.6], device=dev)
+        elif kind == 'rotate 45':
+            c = math.cos(math.pi / 4)
+            theta[:] = torch.tensor([[c, -c, 0.1], [c, c, -0.05]], device=dev)
+        elif kind == 'zoom 2':
+            theta = theta * 2.0
+            theta[:, :, 2] = torch.tensor([0.3, -0.2], device=dev)
+        elif kind == 'singular':
+            theta[:] = torch.tensor([[0.8, 0.2, 0.0], [0.4, 0.1, 0.2]],
+                                    device=dev)
         return theta.contiguous(), ph, pw, oh, ow
 
-    for kind, n, (h, w) in (('sampled', 16, (256, 256)),
-                            ('sampled', 16, (64, 32)),
-                            ('identity', 16, (64, 32)),
-                            ('off_plane', 16, (256, 256))):
+    def blocks(plan):
+        return plan.grid[0] * plan.grid[1] * plan.grid[2]
+
+    for kind, n, (h, w), c in (('sampled', 16, (256, 256), 4),
+                               ('sampled', 16, (64, 32), 4),
+                               ('identity', 16, (64, 32), 4),
+                               ('off_plane', 16, (256, 256), 4),
+                               ('rotate 45', 16, (256, 256), 4),
+                               ('zoom 2', 16, (256, 256), 4),
+                               ('sampled', 4, (64, 32), 3),
+                               ('singular', 2, (16, 16), 4)):
         main = kind == 'sampled' and h == 256
         theta, ph, pw, oh, ow = thetas(kind, n, h, w)
-        x = torch.rand(n, ph, pw, 4, device=dev, generator=gen) * 2 - 1
-        g = torch.randn(n, oh, ow, 4, device=dev, generator=gen)
-        label = f'[{n},{ph},{pw},4] -> [{n},{oh},{ow},4] {kind}'
+        x = torch.rand(n, ph, pw, c, device=dev, generator=gen) * 2 - 1
+        g = torch.randn(n, oh, ow, c, device=dev, generator=gen)
+        label = f'[{n},{ph},{pw},{c}] -> [{n},{oh},{ow},{c}] {kind}'
         fwd = compare(f'K3\' {label}',
                       lambda: aw.warp_forward_cuda(x, theta, oh, ow, 2, taps),
                       lambda: aw.affine_warp_ref(x, theta, oh, ow, 2, taps),
                       TOL_WARP, timed=main)
+        # each kernel twice, with the count of blocks that took the direct
+        # path: the same bits
+        counts = torch.zeros(2, dtype=torch.int32, device=dev)
+        y = aw.warp_forward_cuda(x, theta, oh, ow, 2, taps, counts[0:1])
+        dx = aw.warp_transpose_cuda(g, theta, ph, pw, 2, taps, counts[1:2])
+        if not (torch.equal(y, aw.warp_forward_cuda(x, theta, oh, ow, 2, taps))
+                and torch.equal(dx, aw.warp_transpose_cuda(g, theta, ph, pw,
+                                                           2, taps))):
+            raise AssertionError(f'{label}: two runs of K3\' or K4\' differ')
+        plans = [aw.warp_plan(k, n, (ph, pw), (oh, ow), c, taps.shape[0], 2)
+                 for k in ('forward', 'transpose')]
+        direct = [int(v) for v in counts.tolist()]
+        log(f'  ok  {label}: K3\' and K4\' each give the same bits twice; '
+            f'direct path K3\' {direct[0]}/{blocks(plans[0])} blocks, K4\' '
+            f'{direct[1]}/{blocks(plans[1])} ({plans[0].variant}, '
+            f'{plans[1].variant})')
         # the adjoint identity <K3 x, g> = <x, K4 g>, in float64 sums
-        y = aw.warp_forward_cuda(x, theta, oh, ow, 2, taps)
-        dx = aw.warp_transpose_cuda(g, theta, ph, pw, 2, taps)
         lhs = (y.double() * g.double()).sum().item()
         rhs = (x.double() * dx.double()).sum().item()
         rel = abs(lhs - rhs) / max(abs(lhs), 1e-30)
@@ -417,14 +479,40 @@ def phase_warp(dev, card):
             t_plain = backward_ms(yr, xr, g)
             line += f'  kernel {t_ms:.4f} ms  plain (autograd backward) ' \
                 f'{t_plain:.4f} ms'
+            # the two-call yardstick, forward and its autograd; it rounds
+            # the coordinates in another order (one float32 step of a
+            # coordinate near 800 is 6e-5 pixel), so it is held loosely
+            two_calls, xc = library_warp(x, theta, taps, oh, ow)
+            lib = two_calls().permute(0, 2, 3, 1)
+            torch.testing.assert_close(lib, y, rtol=0, atol=1e-3)
+            xl = xc.clone().requires_grad_(True)
+            yl = two_calls(xl)
+            gl = g.permute(0, 3, 1, 2).contiguous()
+            dl, = torch.autograd.grad(yl, xl, gl, retain_graph=True)
+            torch.testing.assert_close(dl.permute(0, 2, 3, 1), dx, rtol=0,
+                                       atol=1e-3 * scale)
+            two_fwd, two_bwd = device_ms(two_calls), backward_ms(yl, xl, gl)
             flops = 2 * 49 * n * oh * ow * 4        # <= 7x7 taps per output
             out['warp_forward'] = (fwd[0], fwd[1], fwd[2],
                                    *bound(nbytes(x, y), flops), None)
             out['warp_transpose'] = (err, t_ms, t_plain,
                                      *bound(nbytes(g, dx), flops), None)
+            out['two_calls'] = {'warp_forward': two_fwd,
+                                'warp_transpose': two_bwd}
+            out['direct_share'] = {'warp_forward': direct[0] / blocks(plans[0]),
+                                   'warp_transpose': direct[1] / blocks(plans[1])}
+            out['host_us'] = {
+                'warp_forward': host_us(lambda: aw.warp_forward_cuda(
+                    x, theta, oh, ow, 2, taps)),
+                'warp_transpose': host_us(lambda: aw.warp_transpose_cuda(
+                    g, theta, ph, pw, 2, taps))}
             log(f'  bound at the main shape: {out["warp_forward"][3]:.4f} ms '
                 f'({out["warp_forward"][4]}; {nbytes(x, y) / 1e6:.1f} MB, '
-                f'{flops / 1e9:.2f} GFLOP)  card: {card}')
+                f'{flops / 1e9:.2f} GFLOP); two calls (F.conv_transpose2d + '
+                f'F.grid_sample) {two_fwd:.4f} ms, their autograd backward '
+                f'{two_bwd:.4f} ms; host us per call K3\' '
+                f'{out["host_us"]["warp_forward"]:.1f}, K4\' '
+                f'{out["host_us"]["warp_transpose"]:.1f}  card: {card}')
         log(line)
     return out
 
@@ -1167,6 +1255,10 @@ def phase_aio_train(card, kernels, cfg, device='cuda'):
     if variants['upfirdn2d'].get('generic', 0) != 0:
         raise AssertionError('K2\' took its generic variant on the AIO path: '
                              f'{variants["upfirdn2d"]}')
+    for name in ('warp_forward', 'warp_transpose'):
+        if variants[name].get('direct', 0) != 0:
+            raise AssertionError(f'{name} took its direct variant on the AIO '
+                                 f'path: {variants[name]}')
     check_moved(model, before)
     if state.step != TRAIN_STEPS or not torch.isfinite(
             model.mapping.w_avg).all():
@@ -1289,7 +1381,10 @@ def main():
     x = torch.empty(8, 128, 128, 4)
     checks['upfirdn2d'] = (*k2, *bound(5 * nbytes(x), 8 * 4 * x.numel()),
                            library_upsample_ms('cuda'))
-    checks.update(phase_warp('cuda', card))
+    warp = phase_warp('cuda', card)
+    warp_extra = {k: warp.pop(k) for k in ('two_calls', 'direct_share',
+                                           'host_us')}
+    checks.update(warp)
     grads = phase_grads('cuda', card)
     checks['bias_act_grad'] = grads['bias_act_grad']
 
@@ -1322,8 +1417,16 @@ def main():
                      'launches': launches[name], 'max_abs_err': err,
                      'ms': ms, 'plain_ms': plain, 'bound_ms': bound_ms,
                      'bound_by': bound_by, 'library_ms': lib})
-        if name in ('bias_act', 'upfirdn2d'):
+        if name in ('bias_act', 'upfirdn2d', 'warp_forward',
+                    'warp_transpose'):
             rows[-1]['launches_by_variant'] = variants[name]
+        if name.startswith('warp_'):
+            # F.conv_transpose2d + F.grid_sample (their autograd backward
+            # for K4'), the share of blocks that took the direct path and
+            # the host's time per call, at the main shape
+            rows[-1]['two_calls_ms'] = warp_extra['two_calls'][name]
+            rows[-1]['direct_share'] = warp_extra['direct_share'][name]
+            rows[-1]['host_us'] = warp_extra['host_us'][name]
     # K2''s gradient at its main shape (down2), beside the forward's row
     err, ms, plain, bound_ms, bound_by, lib = k2_backward
     rows[[r['name'] for r in rows].index('upfirdn2d')]['backward'] = {

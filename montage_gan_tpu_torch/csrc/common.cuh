@@ -1,7 +1,8 @@
 // Shared helpers of the port's CUDA kernels: element conversion between the
 // storage types (float32, bfloat16) and the float32 the kernels compute in,
-// a 16-byte vector type for coalesced loads, and the error-string entry point
-// that every library exports for its Python wrapper.
+// a 16-byte vector type for coalesced loads, rounded integer division, and
+// the error-string entry point that every library exports for its Python
+// wrapper.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,6 +38,15 @@ template <> inline float mgt_round_to<__nv_bfloat16>(float v) {
 
 static inline bool mgt_aligned(const void* p, size_t bytes) {
     return (reinterpret_cast<uintptr_t>(p) % bytes) == 0;
+}
+
+// Integer division rounding toward minus and plus infinity (b > 0).
+__host__ __device__ __forceinline__ int mgt_floordiv(int a, int b) {
+    return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+
+__host__ __device__ __forceinline__ int mgt_ceildiv(int a, int b) {
+    return -mgt_floordiv(-a, b);
 }
 
 static inline unsigned int mgt_grid(int64_t work_items, int threads) {

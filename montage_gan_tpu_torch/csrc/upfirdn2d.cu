@@ -70,14 +70,6 @@ template <int UP, int DOWN> struct MgtTile;
 template <> struct MgtTile<2, 1> { static constexpr int H = 32, W = 32; };
 template <> struct MgtTile<1, 2> { static constexpr int H = 16, W = 32; };
 
-__host__ __device__ __forceinline__ int mgt_floordiv(int a, int b) {
-    return a >= 0 ? a / b : -((-a + b - 1) / b);
-}
-
-__host__ __device__ __forceinline__ int mgt_ceildiv(int a, int b) {
-    return -mgt_floordiv(-a, b);
-}
-
 __device__ __forceinline__ int mgt_mod(int a, int m) {
     const int r = a % m;
     return r < 0 ? r + m : r;

@@ -1,16 +1,24 @@
-"""K1' and K2' on the card in turns: this tree's wrappers against another
-tree's.
+"""The hand-written kernels on the card in turns: this tree's wrappers against
+another tree's.
 
     python -m montage_gan_tpu_torch.tools.kernel_turns --parent _trees/parent
 
 ``_trees/parent`` is the root of another checkout, for example
 ``git archive <commit> | tar -x -C _trees/parent``.  Each tree's own public
-wrappers (``ops.bias_act.bias_act_cuda``, ``ops.upfirdn2d.upfirdn2d_cuda``),
-built from its own ``csrc/`` into its own ``build/``, run in a process of
-their own, in turns: parent, this tree, this tree, parent.  Each process
-holds its outputs to its plain versions and reports per case the device
-time and the host's time per call.  This tree then times the library call
-that computes the same function, where there is one, and the bound.
+wrappers (``ops.bias_act.bias_act_cuda``, ``ops.upfirdn2d.upfirdn2d_cuda``,
+``ops.affine_warp.warp_forward_cuda`` and ``warp_transpose_cuda``), built
+from its own ``csrc/`` into its own ``build/``, run in a process of their
+own, in turns: parent, this tree, this tree, parent.  Each process holds its
+outputs to its plain versions and reports per case the device time and the
+host's time per call.  This tree then times the library call that computes
+the same function, where there is one (for the warp, two calls:
+``F.conv_transpose2d`` for the ×2 upsample and ``F.grid_sample``, and their
+autograd backward for K4'), and the bound.
+
+The warp's cases take theta from the pipe's own law (``sample_warp_theta``
+at p = 0.6, the same seed in every process) at the main shape (crops of
+256², warped [16, 396, 396, 4] → [16, 524, 524, 4]) and at the 64×32
+layer's.
 
 Times come from ``timing.py``: device times with L2 cold (256 MB read
 before each call, events around the call alone) and host µs per call.
@@ -33,7 +41,8 @@ HERE = Path(__file__).resolve()
 TREE = HERE.parents[2]
 
 # (name, op, shape, dtype, keyword arguments): the main shapes of K1' and
-# K2', K2''s gradient, and two small K1' launches.
+# K2', K2''s gradient, two small K1' launches, and K3'/K4' (shape: the
+# batch and the crop the warp's geometry is made for).
 CASES = (
     ("K1' [8,256,256,64] bf16 lrelu", 'bias_act', (8, 256, 256, 64),
      torch.bfloat16, dict(act='lrelu', gain=math.sqrt(2), clamp=256.0)),
@@ -47,6 +56,14 @@ CASES = (
     ("K2' [8,256,256,4] -> [8,128,128,4] f32 down2", 'upfirdn2d',
      (8, 256, 256, 4), torch.float32,
      dict(down=2, padding=1, gain=4.0, flip_filter=True)),
+    ("K3' [16,396,396,4] -> [16,524,524,4]", 'warp_forward', (16, 256, 256),
+     torch.float32, {}),
+    ("K4' [16,524,524,4] -> [16,396,396,4]", 'warp_transpose',
+     (16, 256, 256), torch.float32, {}),
+    ("K3' [16,108,60,4] -> [16,140,76,4]", 'warp_forward', (16, 64, 32),
+     torch.float32, {}),
+    ("K4' [16,140,76,4] -> [16,108,60,4]", 'warp_transpose', (16, 64, 32),
+     torch.float32, {}),
 )
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6),
        torch.bfloat16: dict(rtol=1.6e-2, atol=1e-5)}
@@ -61,19 +78,57 @@ def timing():
     return module
 
 
-def calls(case, ba, up, filters, seed):
+def _warp_inputs(case, pkg, seed):
+    """(x, g, theta, geometry, taps) of a warp case, from ``seed``."""
+    aug = pkg['augment']
+    n, h, w = case[2]
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    theta, ph, pw, oh, ow = aug.sample_warp_theta(
+        pkg['Draws'](gen), 0.6, aug.make_augment_config('bgcfnc'), n, h, w,
+        device='cuda')
+    x = torch.rand(n, ph, pw, 4, device='cuda', generator=gen) * 2 - 1
+    g = torch.randn(n, oh, ow, 4, device='cuda', generator=gen)
+    return x, g, theta.contiguous(), (ph, pw, oh, ow), aug._HZ_GEOM.to('cuda')
+
+
+def calls(case, pkg, seed):
     """(kernel call, plain call, input) of ``case`` through the imported
-    tree's wrappers, on inputs drawn from ``seed``."""
+    tree's wrappers (``pkg``: its modules), on inputs drawn from ``seed``."""
     _, op, shape, dtype, kw = case
+    if op.startswith('warp'):
+        aw = pkg['affine_warp']
+        x, g, theta, (ph, pw, oh, ow), taps = _warp_inputs(case, pkg, seed)
+        if op == 'warp_forward':
+            return (lambda: aw.warp_forward_cuda(x, theta, oh, ow, 2, taps),
+                    lambda: aw.affine_warp_ref(x, theta, oh, ow, 2, taps), x)
+
+        def plain():
+            xr = x.clone().requires_grad_(True)
+            y = aw.affine_warp_ref(xr, theta, oh, ow, 2, taps)
+            return torch.autograd.grad(y, xr, g)[0]
+        return (lambda: aw.warp_transpose_cuda(g, theta, ph, pw, 2, taps),
+                plain, g)
     g = torch.Generator(device='cuda').manual_seed(seed)
     x = (torch.randn(*shape, device='cuda', generator=g) * 3).to(dtype)
     if op == 'bias_act':
+        ba = pkg['bias_act']
         b = torch.randn(shape[-1], device='cuda', generator=g).to(dtype)
         return (lambda: ba.bias_act_cuda(x, b, **kw),
                 lambda: ba.bias_act_ref(x, b, **kw), x)
-    f = filters.setup_filter([1, 3, 3, 1], device='cuda')
+    up = pkg['upfirdn2d']
+    f = pkg['filters'].setup_filter([1, 3, 3, 1], device='cuda')
     return (lambda: up.upfirdn2d_cuda(x, f, **kw),
             lambda: up.upfirdn2d_ref(x, f, **kw), x)
+
+
+def modules():
+    """The imported tree's modules that ``calls`` uses."""
+    from montage_gan_tpu_torch.ops import affine_warp, bias_act, filters
+    from montage_gan_tpu_torch.ops import upfirdn2d
+    from montage_gan_tpu_torch.training import augment
+    from montage_gan_tpu_torch.training.draws import Draws
+    return dict(affine_warp=affine_warp, bias_act=bias_act, filters=filters,
+                upfirdn2d=upfirdn2d, augment=augment, Draws=Draws)
 
 
 def worker(root: Path) -> None:
@@ -81,17 +136,74 @@ def worker(root: Path) -> None:
     JSON line per case."""
     sys.path.insert(0, str(root))
     from montage_gan_tpu_torch import set_fp32_precision
-    from montage_gan_tpu_torch.ops import bias_act as ba
-    from montage_gan_tpu_torch.ops import filters
-    from montage_gan_tpu_torch.ops import upfirdn2d as up
+    pkg = modules()
     t = timing()
     set_fp32_precision()
     for i, case in enumerate(CASES):
-        kernel, plain, x = calls(case, ba, up, filters, seed=i)
+        kernel, plain, x = calls(case, pkg, seed=i)
         out, ref = kernel(), plain()
-        torch.testing.assert_close(out, ref, **TOL[x.dtype])
+        tol = TOL[x.dtype]
+        if case[1] == 'warp_transpose':       # the gradient's own scale
+            tol = dict(rtol=1e-5, atol=1e-5 * ref.abs().max().item())
+        elif case[1] == 'warp_forward':
+            tol = dict(rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(out, ref, **tol)
         print(json.dumps({'case': case[0], 'ms': t.device_ms(kernel),
                           'host_us': t.host_us(kernel)}), flush=True)
+
+
+def library(case, pkg, seed, y, t):
+    """(name, device ms) of the library calls that compute ``case``'s
+    function, checked against the kernel's output ``y``; None if none."""
+    import torch.nn.functional as F
+    op = case[1]
+    if op == 'upfirdn2d':
+        _, _, x = calls(case, pkg, seed)
+        f = pkg['filters'].setup_filter([1, 3, 3, 1], device='cuda')
+        w = (f * 4.0)[None, None].repeat(4, 1, 1, 1)
+        xc = x.permute(0, 3, 1, 2)
+        if case[4].get('up'):
+            def lib():
+                return F.conv_transpose2d(xc, w, stride=2, padding=1,
+                                          groups=4).permute(0, 2, 3, 1)
+            name = 'depthwise F.conv_transpose2d'
+        else:
+            def lib():
+                return F.conv2d(xc, w, stride=2, padding=1,
+                                groups=4).permute(0, 2, 3, 1)
+            name = 'depthwise F.conv2d stride 2'
+        torch.testing.assert_close(lib(), y, **TOL[x.dtype])
+        return name, t.device_ms(lib)
+    if not op.startswith('warp'):
+        return None
+    # two calls: the ×2 upsample as a depthwise transposed convolution
+    # (stride 2, padding k0 = 5, kernel 4·f⊗f), then F.grid_sample on the
+    # plain version's grid; they round the coordinates in another order, so
+    # they are held to the kernel loosely
+    x, g, theta, (ph, pw, oh, ow), taps = _warp_inputs(case, pkg, seed)
+    from ..ops.grid_sample import affine_grid
+    k0 = taps.shape[0] - 1 - (taps.shape[0] + 1) // 2
+    w = (4.0 * taps[:, None] * taps[None, :])[None, None].repeat(4, 1, 1, 1)
+    grid = affine_grid(theta, oh, ow)
+    xc = x.permute(0, 3, 1, 2).contiguous()
+
+    def two_calls(v):
+        up = F.conv_transpose2d(v, w, stride=2, padding=k0, groups=4)
+        return F.grid_sample(up, grid, mode='bilinear', padding_mode='zeros',
+                             align_corners=False)
+    if op == 'warp_forward':
+        torch.testing.assert_close(two_calls(xc).permute(0, 2, 3, 1), y,
+                                   rtol=0, atol=1e-3)
+        return ('F.conv_transpose2d + F.grid_sample',
+                t.device_ms(lambda: two_calls(xc)))
+    xl = xc.clone().requires_grad_(True)
+    yl = two_calls(xl)
+    gl = g.permute(0, 3, 1, 2).contiguous()
+    dl, = torch.autograd.grad(yl, xl, gl, retain_graph=True)
+    torch.testing.assert_close(dl.permute(0, 2, 3, 1), y, rtol=0,
+                               atol=1e-3 * y.abs().max().item())
+    return ('their autograd backward', t.device_ms(
+        lambda: torch.autograd.grad(yl, xl, gl, retain_graph=True)))
 
 
 def turns(parent: Path, card: str) -> None:
@@ -113,18 +225,19 @@ def turns(parent: Path, card: str) -> None:
     print(f'[turns] parent | new | new | parent; device ms (L2 cold), then '
           f'host us per call; bound from bytes at {t.PEAK_BYTES / 1e12} '
           f'TB/s  card: {card}', flush=True)
-    from ..ops import bias_act as ba
-    from ..ops import filters
-    from ..ops import upfirdn2d as up
-    import torch.nn.functional as F
+    pkg = modules()
+    kernels = {'bias_act': pkg['bias_act'].kernel,
+               'upfirdn2d': pkg['upfirdn2d'].kernel,
+               'warp_forward': pkg['affine_warp'].forward_kernel,
+               'warp_transpose': pkg['affine_warp'].transpose_kernel}
     for i, case in enumerate(CASES):
         runs = got[case[0]]
         ms = [r['ms'] for _, r in runs]
         host = [r['host_us'] for _, r in runs]
         p, n = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
-        kernel, _, x = calls(case, ba, up, filters, seed=i)
+        kernel, _, x = calls(case, pkg, seed=i)
         y = kernel()
-        kern = ba.kernel if case[1] == 'bias_act' else up.kernel
+        kern = kernels[case[1]]
         before = dict(kern.variants)
         kernel()
         variant = [k for k, v in kern.variants.items()
@@ -136,23 +249,9 @@ def turns(parent: Path, card: str) -> None:
                 f'{bound:.4f} ({moved / 1e6:.1f} MB; new at '
                 f'{100 * bound / n:.1f}%)  host us: parent {host[0]:.1f} '
                 f'{host[3]:.1f} new {host[1]:.1f} {host[2]:.1f}')
-        if case[1] == 'upfirdn2d':
-            # one depthwise convolution computes the same resampling
-            f = filters.setup_filter([1, 3, 3, 1], device='cuda')
-            w = (f * 4.0)[None, None].repeat(4, 1, 1, 1)
-            xc = x.permute(0, 3, 1, 2)
-            if case[4].get('up'):
-                def lib():
-                    return F.conv_transpose2d(xc, w, stride=2, padding=1,
-                                              groups=4).permute(0, 2, 3, 1)
-                name = 'depthwise F.conv_transpose2d'
-            else:
-                def lib():
-                    return F.conv2d(xc, w, stride=2, padding=1,
-                                    groups=4).permute(0, 2, 3, 1)
-                name = 'depthwise F.conv2d stride 2'
-            torch.testing.assert_close(lib(), y, **TOL[x.dtype])
-            line += f'  {name} {t.device_ms(lib):.4f}'
+        lib = library(case, pkg, i, y, t)
+        if lib is not None:
+            line += f'  {lib[0]} {lib[1]:.4f}'
         print(line + f'  card: {card}', flush=True)
 
 
@@ -174,7 +273,7 @@ def main(argv=None):
     from ..ops import cuda
     set_fp32_precision()
     card = timing().card_line()
-    cuda.build(['bias_act', 'upfirdn2d'])
+    cuda.build(['bias_act', 'upfirdn2d', 'warp'])
     for name, log in cuda.BUILD_LOGS.items():
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line or 'smem' in line:

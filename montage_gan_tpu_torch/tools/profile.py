@@ -27,7 +27,7 @@ hand-written kernel it also prints, over the profiled steps: the kernel
 time and launches per step, the bytes its launches had to move (each input
 read once, each output written once, as the wrappers count them), the bound
 those bytes set (over 3.35 TB/s) and the gap between the two, the largest
-first; K1' and K2' with their launches by variant.
+first; K1'-K4' with their launches by variant.
 """
 
 from __future__ import annotations
@@ -214,7 +214,8 @@ def main(argv=None):
         rows.append((fam_ms[fam] - bound, fam, n, nbytes, bound, variants))
     for gap, fam, n, nbytes, bound, variants in sorted(rows, reverse=True):
         by = f'  by variant {variants}' if len(variants) > 1 or fam in (
-            "K1' bias_act", "K2' upfirdn2d") else ''
+            "K1' bias_act", "K2' upfirdn2d", "K3' warp forward",
+            "K4' warp transpose") else ''
         print(f'    {fam:20s} {fam_ms[fam]:9.3f} ms {n:7.0f} launches '
               f'(profiler {fam_n[fam]:.0f}) {nbytes / 1e9:8.3f} GB  bound '
               f'{bound:8.3f} ms  gap {gap:8.3f} ms{by}')

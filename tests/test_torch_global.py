@@ -439,8 +439,12 @@ def test_aio_step_kernel_path_and_launches(micro, monkeypatch):
     emulated = run()
     expect = chip_smoke.expected_train_launches(emulated, hyper, 2)
     assert {k: kernels[k].launches for k in expect} == expect
-    # the ToRGB skip and its gradients take K2''s tiled variants only
+    # the ToRGB skip and its gradients take K2''s tiled variants only, and
+    # the ADA warp (RGBA, up 2, 12 taps) K3''s and K4''s
     assert kernels['upfirdn2d'].variants['generic'] == 0
+    for k in ('warp_forward', 'warp_transpose'):
+        assert kernels[k].variants['direct'] == 0
+        assert kernels[k].variants['tiled'] == kernels[k].launches > 0
     ref = dict(plain.named_parameters())
     for name, p in emulated.named_parameters():
         keep = ratio[id(p)] >= SMALL_GRAD

@@ -274,19 +274,31 @@ def _emulated_upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False,
     return y
 
 
-def _emulated_warp_forward(x, theta, out_h, out_w, up, taps):
-    taw.forward_kernel.launches += 1
-    return taw.affine_warp_ref(x, theta, out_h, out_w, up,
-                               taps if up > 1 else None)
+def _count_warp(kernel, kind, stored, out, theta, taps, up):
+    """Count a warp launch under the variant the wrapper picks for it
+    (``stored``: x or dx, ``out``: the warp's output or its cotangent)."""
+    plan = taw.warp_plan(kind, stored.shape[0], tuple(stored.shape[1:3]),
+                         tuple(out.shape[1:3]), stored.shape[-1],
+                         taps.shape[0], up)
+    kernel.count(plan.variant, sum(t.numel() * t.element_size()
+                                   for t in (stored, theta, taps, out)))
 
 
-def _emulated_warp_transpose(g, theta, h, w, up, taps):
-    taw.transpose_kernel.launches += 1
+def _emulated_warp_forward(x, theta, out_h, out_w, up, taps,
+                           direct_blocks=None):
+    out = taw.affine_warp_ref(x, theta, out_h, out_w, up,
+                              taps if up > 1 else None)
+    _count_warp(taw.forward_kernel, 'forward', x, out, theta, taps, up)
+    return out
+
+
+def _emulated_warp_transpose(g, theta, h, w, up, taps, direct_blocks=None):
     with torch.enable_grad():
         x0 = torch.zeros(g.shape[0], h, w, g.shape[-1], requires_grad=True)
         y = taw.affine_warp_ref(x0, theta, g.shape[1], g.shape[2], up,
                                 taps if up > 1 else None)
         dx, = torch.autograd.grad(y, x0, g)
+    _count_warp(taw.transpose_kernel, 'transpose', dx, g, theta, taps, up)
     return dx
 
 
