@@ -38,9 +38,12 @@ Phases, in order; each raises on failure, and the script then exits non-zero:
    ensemble, CPU (plain) against the card (kernels), same weights and draws.
 10. composite: K5' (translate and composite) driven once through
    ``translate_and_composite_fused`` on the full-width sampling path's
-   layer stack and STN shifts at [8, 9, 256, 256, 4], then against its
-   plain version there and at odd shapes, shifts and fills, and timed beside
-   ``F.grid_sample`` + ``alpha_composite``.
+   layer stack and STN shifts at [8, 9, 256, 256, 4] (one launch, tiled),
+   then against its plain version there and at odd shapes, shifts (on
+   integers of t·W/2 and one ulp off) and fills, four column tiles, one
+   layer and a base pointer off 16-byte alignment (the direct variant),
+   each twice, bit for bit; timed beside ``F.grid_sample`` +
+   ``alpha_composite``, with the host's time per call.
 11. aio train: 5 steps of the full-width all-in-one training step (the
    renderer phase, the local phases, global Gmain/Dmain/R1 through the STN,
    the tanh renderer and the global D, EMA, ADA over 10 lanes) at batch 8
@@ -861,7 +864,11 @@ def premultiplied(img):
 def phase_composite(card, model, z):
     """K5' driven once on the sampling path's unplaced layer stack (mapped
     to [0, 1]) and its STN shifts, then held to its plain version there and
-    at odd cases, and timed."""
+    at odd cases (shifts where t·W/2 lies on an integer or one ulp off it,
+    several column tiles, H and W not multiples of the tile, one layer, a
+    base pointer off 16-byte alignment), each twice, bit for bit, with the
+    variant it took; timed, with the host's time per call."""
+    import numpy as np
     import torch
     import torch.nn.functional as F
     from montage_gan_tpu_torch.ops import composite as comp
@@ -880,19 +887,27 @@ def phase_composite(card, model, z):
     comp.kernel.reset()
     img = comp.translate_and_composite_fused(layers, shifts)
     torch.cuda.synchronize()
-    launches = comp.kernel.launches
-    if launches != 1 or tuple(img.shape) != (b, h, w, 4) or \
-            not torch.isfinite(img).all():
-        raise AssertionError(f'composite: {launches} launches, '
+    launches, variants = comp.kernel.launches, dict(comp.kernel.variants)
+    if launches != 1 or variants != {'tiled': 1} or \
+            tuple(img.shape) != (b, h, w, 4) or not torch.isfinite(img).all():
+        raise AssertionError(f'composite: {launches} launches {variants}, '
                              f'{tuple(img.shape)}')
 
-    def case(label, x, t, pad, timed=False):
+    def case(label, x, t, pad, variant='tiled'):
         ref = comp.translate_and_composite_ref(x, t, pad)
+        comp.kernel.reset()
         got = comp.translate_and_composite_cuda(x, t, pad)
+        again = comp.translate_and_composite_cuda(x, t, pad)
+        torch.cuda.synchronize()
+        if dict(comp.kernel.variants) != {variant: 2}:
+            raise AssertionError(f'{label}: launches by variant '
+                                 f'{dict(comp.kernel.variants)}, expected '
+                                 f'{variant}')
+        if not torch.equal(got, again):
+            raise AssertionError(f'{label}: two runs of K5\' differ')
         straight = (got - ref).abs().max().item()
-        err = compare(f'{label} pad {pad} (colour premultiplied)',
-                      lambda: premultiplied(
-                          comp.translate_and_composite_cuda(x, t, pad)),
+        err = compare(f'{label} pad {pad} ({variant}, twice the same bits; '
+                      'colour premultiplied)', lambda: premultiplied(got),
                       lambda: premultiplied(ref), TOL_COMPOSITE)[0]
         log(f'      straight colour max_abs_err {straight:.3g}')
         return err
@@ -902,6 +917,8 @@ def phase_composite(card, model, z):
                                                                shifts))
     t_plain = device_ms(lambda: comp.translate_and_composite_ref(layers,
                                                                  shifts))
+    t_host = host_us(lambda: comp.translate_and_composite_cuda(layers,
+                                                               shifts))
     # two calls that compute the same function for pad 0 (the grid and the
     # NCHW copy are made outside the timed region); a check that they do,
     # loosely: grid_sample computes its coordinates in another order
@@ -917,11 +934,12 @@ def phase_composite(card, model, z):
     torch.testing.assert_close(premultiplied(two_calls()), premultiplied(img),
                                rtol=0, atol=1e-3)
     t_two = device_ms(two_calls)
-    bound_ms, bound_by = bound(nbytes(layers, shifts, img),
-                               70 * layers.numel() // 4)
+    moved = comp.needed_bytes(layers.shape, shifts.cpu())
+    bound_ms, bound_by = bound(moved, 70 * layers.numel() // 4)
     log(f'  kernel {t_ms:.4f} ms  plain {t_plain:.4f} ms  F.grid_sample + '
         f'alpha_composite {t_two:.4f} ms  bound {bound_ms:.4f} ms '
-        f'({bound_by}; {nbytes(layers, shifts, img) / 1e6:.2f} MB)  '
+        f'({bound_by}; {moved / 1e6:.2f} MB that some tap reads, the '
+        f'shifts and the output)  host us per call {t_host:.1f}  '
         f'card: {card}')
 
     gen = torch.Generator(device='cuda').manual_seed(SEED + 9)
@@ -934,8 +952,31 @@ def phase_composite(card, model, z):
     for pad in (0.0, 0.3):
         case('[3,5,67,45,4] shifts +-1, beyond +-1, 0; alpha-0 layer', x, t,
              pad)
+    # t·W/2 and t·H/2 on an integer, and one float32 ulp either side
+    rng = np.random.RandomState(SEED + 9)
+    nb, nl, nh, nw = 2, 6, 40, 72
+    k = np.stack([rng.randint(-nw // 2, nw // 2 + 1, (nb, nl)) / (nw / 2),
+                  rng.randint(-nh // 2, nh // 2 + 1, (nb, nl)) / (nh / 2)],
+                 -1).astype(np.float32)
+    k[:, 0::3] = np.nextafter(k[:, 0::3], np.float32(2))
+    k[:, 1::3] = np.nextafter(k[:, 1::3], np.float32(-2))
+    x = torch.rand(nb, nl, nh, nw, 4, device='cuda', generator=gen)
+    case(f'[{nb},{nl},{nh},{nw},4] shifts on integers and one ulp off', x,
+         torch.from_numpy(k).cuda(), 0.0)
+    x = torch.rand(2, 3, 64, 1000, 4, device='cuda', generator=gen)
+    t = torch.rand(2, 3, 2, device='cuda', generator=gen) * 2.4 - 1.2
+    case('[2,3,64,1000,4] four column tiles', x, t, 0.0)
+    x = torch.rand(4, 1, 33, 50, 4, device='cuda', generator=gen)
+    t = torch.rand(4, 1, 2, device='cuda', generator=gen) * 2.4 - 1.2
+    case('[4,1,33,50,4] one layer', x, t, 0.3)
+    # a base pointer 4 bytes off 16-byte alignment: the direct variant
+    buf = torch.rand(3 * 5 * 67 * 45 * 4 + 1, device='cuda', generator=gen)
+    x = buf[1:].view(3, 5, 67, 45, 4)
+    t = torch.rand(3, 5, 2, device='cuda', generator=gen) * 3 - 1.5
+    case('[3,5,67,45,4] storage offset 4 bytes', x, t, 0.0, variant='direct')
     return {'composite': (err, t_ms, t_plain, bound_ms, bound_by, None)}, \
-        launches
+        launches, {'variants': variants, 'host_us': t_host,
+                   'two_calls_ms': t_two}
 
 
 def phase_cross_device(device='cuda'):
@@ -1390,7 +1431,8 @@ def main():
 
     slice_kernels = {k: kernels[k] for k in ('bias_act', 'upfirdn2d')}
     model, z = phase_slice(card, slice_kernels, MontageConfig())
-    composite_check, composite_launches = phase_composite(card, model, z)
+    composite_check, composite_launches, composite_extra = phase_composite(
+        card, model, z)
     checks.update(composite_check)
     del model
     phase_cross_device()
@@ -1420,6 +1462,12 @@ def main():
         if name in ('bias_act', 'upfirdn2d', 'warp_forward',
                     'warp_transpose'):
             rows[-1]['launches_by_variant'] = variants[name]
+        if name == 'composite':
+            # its main-path launch by variant, the host's time per call and
+            # F.grid_sample + alpha_composite, at the main shape
+            rows[-1]['launches_by_variant'] = composite_extra['variants']
+            rows[-1]['host_us'] = composite_extra['host_us']
+            rows[-1]['two_calls_ms'] = composite_extra['two_calls_ms']
         if name.startswith('warp_'):
             # F.conv_transpose2d + F.grid_sample (their autograd backward
             # for K4'), the share of blocks that took the direct path and

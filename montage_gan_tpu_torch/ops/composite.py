@@ -13,13 +13,26 @@ and 0/0 colour divisions resolving to 0.
 (``ops/pallas/composite_kernel.py``, forward only, shifts clamped to ±1):
 a CPU tensor takes its plain version, ``translate_and_composite`` of the
 clamped shifts; a CUDA tensor launches kernel K5' (``csrc/composite.cu``),
-which runs the recurrence itself, layer by layer, in registers.
+which runs the recurrence itself, layer by layer, on a premultiplied canvas
+in registers.
+
+K5' has two variants, chosen from the parameters alone (``composite_plan``)
+and counted on ``kernel.variants``: ``tiled`` (a 16-byte aligned layer
+tensor: each block stages its tile's source window per layer by bulk copy,
+in a ring over the layers) and ``direct`` (the same tiles, taps read from
+device memory).  ``axis_taps`` and ``tile_window`` give the tiles' tap
+tables and windows as the kernel computes them (the CPU tests hold them),
+``needed_bytes`` the bytes a launch must move.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .cuda import CudaKernel, stream_handle, takes_plain, tensor_bytes
@@ -27,7 +40,22 @@ from .grid_sample import translate_sample
 
 kernel = CudaKernel('composite', 'mgt_translate_composite',
                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                    + [ctypes.c_float, ctypes.c_void_p])
+                    + [ctypes.c_float] + [ctypes.c_int] * 4
+                    + [ctypes.c_void_p])
+
+# csrc/composite.cu's variant codes and limits.
+VARIANT_CODES = {'direct': 0, 'tiled': 1}
+ROW_CHOICES = (4, 8, 16)    # R, the rows of a tile (template instances)
+MAX_TILE_W = 256            # a tile's columns: one thread each
+MAX_STAGES = 4
+MAX_SMEM = 232448           # 227 KB, an H100 block's shared memory
+# The plan's defaults: R rows by TILE_W columns, a ring of STAGES layers;
+# a launch of fewer tiles than an H100 has SMs takes SMALL_ROWS-row tiles.
+ROWS = 8
+TILE_W = 256
+STAGES = 2
+SMS = 132
+SMALL_ROWS = 4
 
 
 def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -80,11 +108,158 @@ def translate_and_composite_ref(layers: torch.Tensor,
                                    pad_value, 'zero1')
 
 
+# ---------------------------------------------------------------------------
+# The plan of a launch and each tile's tables and windows (csrc/composite.cu's
+# twins)
+# ---------------------------------------------------------------------------
+
+def capacity(rows: int, tile_w: int) -> int:
+    """composite_capacity: image pixels a stage holds, the largest window
+    of a ``rows`` × ``tile_w`` tile."""
+    return (rows + 2) * (tile_w + 2)
+
+
+def stage_bytes(rows: int, tile_w: int, tiled: bool) -> int:
+    """composite_stage_bytes: a stage's shared memory (window, column and
+    row tables, window header, mbarrier)."""
+    return ((16 * capacity(rows, tile_w) if tiled else 0) + 8 * tile_w
+            + 8 * rows + 24 + 8)
+
+
+@dataclass(frozen=True)
+class CompositePlan:
+    """One launch of K5': its variant, tile (``rows`` × ``tile_w``), ring
+    depth, grid (tiles along x, along y, samples), threads per block and
+    dynamic shared memory."""
+    variant: str
+    rows: int
+    tile_w: int
+    stages: int
+    grid: Tuple[int, int, int]
+    threads: int
+    smem_bytes: int
+    hw: Tuple[int, int]
+
+    def tile_box(self, ty: int, tx: int) -> Tuple[int, int, int, int]:
+        """Output rows ``[y0, y1)`` and columns ``[x0, x1)`` of tile (ty,
+        tx)."""
+        h, w = self.hw
+        y0, x0 = ty * self.rows, tx * self.tile_w
+        return y0, min(y0 + self.rows, h), x0, min(x0 + self.tile_w, w)
+
+    def tiles(self):
+        for ty in range(self.grid[1]):
+            for tx in range(self.grid[0]):
+                yield ty, tx
+
+
+@functools.lru_cache(maxsize=256)
+def composite_plan(b: int, h: int, w: int, aligned: bool = True,
+                   rows: Optional[int] = None, tile_w: int = TILE_W,
+                   stages: int = STAGES) -> CompositePlan:
+    """The launch of K5' on ``b`` samples of ``h`` × ``w``: ``tiled`` for
+    a 16-byte aligned layer tensor whose ring fits in shared memory, else
+    ``direct``.  A tile is ``rows`` × min(``tile_w``, ``w``); ``rows``
+    defaults to ROWS, or to SMALL_ROWS where ROWS-row tiles would be fewer
+    than the card's SMs (such a launch is bound by latency, not bytes, and
+    more blocks shorten it)."""
+    tw = min(tile_w, w)
+    if rows is None:
+        rows = SMALL_ROWS if -(-w // tw) * -(-h // ROWS) * b < SMS else ROWS
+    if rows not in ROW_CHOICES or not 1 <= tile_w <= MAX_TILE_W \
+            or not 2 <= stages <= MAX_STAGES:
+        raise ValueError(f'K5\' tile {rows} x {tile_w}, {stages} stages: rows '
+                         f'in {ROW_CHOICES}, 1-{MAX_TILE_W} columns, 2-'
+                         f'{MAX_STAGES} stages')
+    tiled = aligned and stages * stage_bytes(rows, tw, True) <= MAX_SMEM
+    grid = (-(-w // tw), -(-h // rows), b)
+    if grid[1] > 65535 or b > 65535:
+        raise ValueError(f'K5\' grid {grid} exceeds the launch limits')
+    return CompositePlan(variant='tiled' if tiled else 'direct', rows=rows,
+                         tile_w=tw, stages=stages, grid=grid,
+                         threads=-(-tw // 32) * 32,
+                         smem_bytes=stages * stage_bytes(rows, tw, tiled),
+                         hw=(h, w))
+
+
+_F32 = np.float32
+
+
+def clamp_shift(t) -> np.ndarray:
+    """mgt_shift: a shift clamped to [-1, 1], float32 (NaN gives -1)."""
+    t = np.asarray(t, _F32)
+    return np.where(np.isnan(t), _F32(-1), np.clip(t, _F32(-1), _F32(1)))
+
+
+def axis_taps(n: int, t, index=None) -> Tuple[np.ndarray, np.ndarray]:
+    """mgt_tap along an axis of extent ``n`` translated by the clamped
+    shift ``t``: (i0, f) of output indices ``index`` (default all), each
+    step rounded in float32 as the kernel and the plain version round."""
+    i = np.arange(n) if index is None else np.asarray(index)
+    t = _F32(t)
+    g = ((_F32(2) * i.astype(_F32) + _F32(1)) / _F32(n) - _F32(1)) + t
+    c = (g + _F32(1)) * _F32(0.5 * n) - _F32(0.5)
+    c0 = np.floor(c)
+    return c0.astype(np.int64), (c - c0).astype(_F32)
+
+
+class Window(NamedTuple):
+    """A layer's source window for one tile (csrc MgtWindow): image rows
+    ``[y0, y0 + rows)`` by columns ``[x0, x0 + cols)``, ``rows`` 0 where no
+    tap lies in the image; ``base``, the first row's iy0; ``regular``: row
+    r's iy0 is ``base + r`` for every row of the tile; ``staged``: it fits
+    the stage."""
+    y0: int
+    x0: int
+    rows: int
+    cols: int
+    base: int
+    regular: bool
+    staged: bool
+
+
+def tile_window(plan: CompositePlan, shift, ty: int, tx: int) -> Window:
+    """mgt_window and the row table's base and rule for tile (ty, tx) and
+    a layer's (dx, dy) ``shift`` (clamped here)."""
+    h, w = plan.hw
+    y0, y1, x0, x1 = plan.tile_box(ty, tx)
+    sx, sy = clamp_shift(shift)
+    r = axis_taps(h, sy, np.arange(y0, y1))[0]
+    c = axis_taps(w, sx, [x0, x1 - 1])[0]
+    base = int(r[0])
+    regular = bool((r == base + np.arange(y1 - y0)).all())
+    r0, r1 = max(base, 0), min(int(r[-1]) + 1, h - 1)
+    c0, c1 = max(int(c[0]), 0), min(int(c[1]) + 1, w - 1)
+    if r1 < r0 or c1 < c0:
+        return Window(0, 0, 0, 0, base, regular, plan.variant == 'tiled')
+    rows, cols = r1 - r0 + 1, c1 - c0 + 1
+    staged = plan.variant == 'tiled' and rows <= plan.rows + 2 \
+        and cols <= plan.tile_w + 2
+    return Window(r0, c0, rows, cols, base, regular, staged)
+
+
+def needed_bytes(layers_shape, shifts) -> int:
+    """Bytes that K5' must move for ``[B, L, H, W, 4]`` float32 layers and
+    ``[B, L, 2]`` shifts: each image pixel some tap reads, once (the window
+    of the whole image per layer), the shifts, and the output."""
+    b, l, h, w, c = layers_shape
+    s = clamp_shift(np.asarray(shifts, _F32).reshape(b * l, 2))
+    total = 0
+    for sx, sy in s:
+        r = axis_taps(h, sy, [0, h - 1])[0]
+        k = axis_taps(w, sx, [0, w - 1])[0]
+        rows = min(int(r[1]) + 1, h - 1) - max(int(r[0]), 0) + 1
+        cols = min(int(k[1]) + 1, w - 1) - max(int(k[0]), 0) + 1
+        total += max(rows, 0) * max(cols, 0) * c * 4
+    return total + b * l * 2 * 4 + b * h * w * c * 4
+
+
 def translate_and_composite_cuda(layers: torch.Tensor,
                                  translations: torch.Tensor,
                                  pad_value: float = 0.0) -> torch.Tensor:
     """Kernel K5' (no autograd): ``[B, L, H, W, 4]`` float32 RGBA in
-    [0, 1] and ``[B, L, 2]`` float32 shifts → ``[B, H, W, 4]``."""
+    [0, 1] and ``[B, L, 2]`` float32 shifts → ``[B, H, W, 4]``, by the
+    variant and tile of ``composite_plan``."""
     for t, name in ((layers, 'layers'), (translations, 'translations')):
         if t.device.type != 'cuda':
             raise ValueError(f'composite kernel needs CUDA tensors, got {name}'
@@ -100,10 +275,12 @@ def translate_and_composite_cuda(layers: torch.Tensor,
                          f'[{b}, {l}, 2]')
     layers = layers.contiguous()
     translations = translations.contiguous()
+    plan = composite_plan(b, h, w, layers.data_ptr() % 16 == 0)
     out = torch.empty(b, h, w, 4, dtype=torch.float32, device=layers.device)
     kernel.launch(layers.data_ptr(), translations.data_ptr(), out.data_ptr(),
-                  b, l, h, w, float(pad_value),
-                  stream_handle(layers.get_device()),
+                  b, l, h, w, float(pad_value), VARIANT_CODES[plan.variant],
+                  plan.rows, plan.tile_w, plan.stages,
+                  stream_handle(layers.get_device()), variant=plan.variant,
                   nbytes=tensor_bytes(layers, translations, out))
     return out
 

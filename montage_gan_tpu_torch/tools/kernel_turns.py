@@ -6,19 +6,23 @@ another tree's.
 ``_trees/parent`` is the root of another checkout, for example
 ``git archive <commit> | tar -x -C _trees/parent``.  Each tree's own public
 wrappers (``ops.bias_act.bias_act_cuda``, ``ops.upfirdn2d.upfirdn2d_cuda``,
-``ops.affine_warp.warp_forward_cuda`` and ``warp_transpose_cuda``), built
-from its own ``csrc/`` into its own ``build/``, run in a process of their
-own, in turns: parent, this tree, this tree, parent.  Each process holds its
-outputs to its plain versions and reports per case the device time and the
-host's time per call.  This tree then times the library call that computes
-the same function, where there is one (for the warp, two calls:
-``F.conv_transpose2d`` for the ×2 upsample and ``F.grid_sample``, and their
-autograd backward for K4'), and the bound.
+``ops.affine_warp.warp_forward_cuda`` and ``warp_transpose_cuda``,
+``ops.composite.translate_and_composite_cuda``), built from its own
+``csrc/`` into its own ``build/``, run in a process of their own, in turns:
+parent, this tree, this tree, parent.  Each process holds its outputs to its
+plain versions and reports per case the device time and the host's time per
+call.  This tree then times the library call that computes the same
+function, where there is one (for the warp, two calls: ``F.conv_transpose2d``
+for the ×2 upsample and ``F.grid_sample``, and their autograd backward for
+K4'; for K5', ``F.grid_sample`` and ``alpha_composite``), and the bound.
 
 The warp's cases take theta from the pipe's own law (``sample_warp_theta``
 at p = 0.6, the same seed in every process) at the main shape (crops of
 256², warped [16, 396, 396, 4] → [16, 524, 524, 4]) and at the 64×32
-layer's.
+layer's.  K5''s cases: the sampling path's stack shape [8, 9, 256, 256, 4]
+with shifts within ±0.1 (the STN's range at the start of training), and
+[3, 5, 67, 45, 4] with shifts in ±1.5 (some clamped); its bound counts the
+pixels some tap reads (``ops.composite.needed_bytes``).
 
 Times come from ``timing.py``: device times with L2 cold (256 MB read
 before each call, events around the call alone) and host µs per call.
@@ -64,9 +68,20 @@ CASES = (
      torch.float32, {}),
     ("K4' [16,140,76,4] -> [16,108,60,4]", 'warp_transpose', (16, 64, 32),
      torch.float32, {}),
+    ("K5' [8,9,256,256,4] shifts +-0.1", 'composite', (8, 9, 256, 256),
+     torch.float32, dict(shift=0.1)),
+    ("K5' [3,5,67,45,4] shifts +-1.5", 'composite', (3, 5, 67, 45),
+     torch.float32, dict(shift=1.5)),
 )
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6),
        torch.bfloat16: dict(rtol=1.6e-2, atol=1e-5)}
+
+
+def premultiplied(img):
+    """RGBA with the colour multiplied by alpha (how K5' is compared: the
+    plain version's closed form loses digits where alpha is small).  Kept
+    here: a worker imports another tree's package, which may lack one."""
+    return torch.cat([img[..., :3] * img[..., 3:], img[..., 3:]], -1)
 
 
 def timing():
@@ -91,10 +106,26 @@ def _warp_inputs(case, pkg, seed):
     return x, g, theta.contiguous(), (ph, pw, oh, ow), aug._HZ_GEOM.to('cuda')
 
 
+def _composite_inputs(case, seed):
+    """(layers in [0, 1], shifts within ±kw['shift']) of a K5' case."""
+    b, l, h, w = case[2]
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    layers = torch.rand(b, l, h, w, 4, device='cuda', generator=gen)
+    shifts = (torch.rand(b, l, 2, device='cuda', generator=gen) * 2 - 1) \
+        * case[4]['shift']
+    return layers, shifts
+
+
 def calls(case, pkg, seed):
     """(kernel call, plain call, input) of ``case`` through the imported
     tree's wrappers (``pkg``: its modules), on inputs drawn from ``seed``."""
     _, op, shape, dtype, kw = case
+    if op == 'composite':
+        cm = pkg['composite']
+        layers, shifts = _composite_inputs(case, seed)
+        return (lambda: cm.translate_and_composite_cuda(layers, shifts),
+                lambda: cm.translate_and_composite_ref(layers, shifts),
+                layers)
     if op.startswith('warp'):
         aw = pkg['affine_warp']
         x, g, theta, (ph, pw, oh, ow), taps = _warp_inputs(case, pkg, seed)
@@ -123,12 +154,13 @@ def calls(case, pkg, seed):
 
 def modules():
     """The imported tree's modules that ``calls`` uses."""
-    from montage_gan_tpu_torch.ops import affine_warp, bias_act, filters
-    from montage_gan_tpu_torch.ops import upfirdn2d
+    from montage_gan_tpu_torch.ops import affine_warp, bias_act, composite
+    from montage_gan_tpu_torch.ops import filters, upfirdn2d
     from montage_gan_tpu_torch.training import augment
     from montage_gan_tpu_torch.training.draws import Draws
-    return dict(affine_warp=affine_warp, bias_act=bias_act, filters=filters,
-                upfirdn2d=upfirdn2d, augment=augment, Draws=Draws)
+    return dict(affine_warp=affine_warp, bias_act=bias_act,
+                composite=composite, filters=filters, upfirdn2d=upfirdn2d,
+                augment=augment, Draws=Draws)
 
 
 def worker(root: Path) -> None:
@@ -147,6 +179,8 @@ def worker(root: Path) -> None:
             tol = dict(rtol=1e-5, atol=1e-5 * ref.abs().max().item())
         elif case[1] == 'warp_forward':
             tol = dict(rtol=1e-5, atol=1e-5)
+        elif case[1] == 'composite':
+            out, ref = premultiplied(out), premultiplied(ref)
         torch.testing.assert_close(out, ref, **tol)
         print(json.dumps({'case': case[0], 'ms': t.device_ms(kernel),
                           'host_us': t.host_us(kernel)}), flush=True)
@@ -157,6 +191,25 @@ def library(case, pkg, seed, y, t):
     function, checked against the kernel's output ``y``; None if none."""
     import torch.nn.functional as F
     op = case[1]
+    if op == 'composite':
+        # F.grid_sample of every layer (the grid and the NCHW copy made
+        # outside the timed region), then alpha_composite; held loosely, as
+        # grid_sample computes its coordinates in another order
+        from ..ops.grid_sample import translate_to_theta
+        layers, shifts = _composite_inputs(case, seed)
+        b, l, h, w, _ = layers.shape
+        nchw = layers.reshape(b * l, h, w, 4).permute(0, 3, 1, 2).contiguous()
+        grid = F.affine_grid(translate_to_theta(shifts.clamp(-1, 1)).reshape(
+            b * l, 2, 3), [b * l, 4, h, w], align_corners=False)
+
+        def two_calls():
+            moved = F.grid_sample(nchw, grid, mode='bilinear',
+                                  padding_mode='zeros', align_corners=False)
+            return pkg['composite'].alpha_composite(
+                moved.permute(0, 2, 3, 1).reshape(b, l, h, w, 4))
+        torch.testing.assert_close(premultiplied(two_calls()),
+                                   premultiplied(y), rtol=0, atol=1e-3)
+        return 'F.grid_sample + alpha_composite', t.device_ms(two_calls)
     if op == 'upfirdn2d':
         _, _, x = calls(case, pkg, seed)
         f = pkg['filters'].setup_filter([1, 3, 3, 1], device='cuda')
@@ -229,7 +282,8 @@ def turns(parent: Path, card: str) -> None:
     kernels = {'bias_act': pkg['bias_act'].kernel,
                'upfirdn2d': pkg['upfirdn2d'].kernel,
                'warp_forward': pkg['affine_warp'].forward_kernel,
-               'warp_transpose': pkg['affine_warp'].transpose_kernel}
+               'warp_transpose': pkg['affine_warp'].transpose_kernel,
+               'composite': pkg['composite'].kernel}
     for i, case in enumerate(CASES):
         runs = got[case[0]]
         ms = [r['ms'] for _, r in runs]
@@ -243,6 +297,9 @@ def turns(parent: Path, card: str) -> None:
         variant = [k for k, v in kern.variants.items()
                    if v != before.get(k, 0)][0]
         moved = x.numel() * x.element_size() + y.numel() * y.element_size()
+        if case[1] == 'composite':
+            _, shifts = _composite_inputs(case, i)
+            moved = pkg['composite'].needed_bytes(x.shape, shifts.cpu())
         bound = moved / t.PEAK_BYTES * 1e3
         line = (f'  {case[0]} ({variant}): parent {ms[0]:.4f} {ms[3]:.4f}  '
                 f'new {ms[1]:.4f} {ms[2]:.4f}  speed-up {p / n:.2f}x  bound '
@@ -273,7 +330,7 @@ def main(argv=None):
     from ..ops import cuda
     set_fp32_precision()
     card = timing().card_line()
-    cuda.build(['bias_act', 'upfirdn2d', 'warp'])
+    cuda.build()
     for name, log in cuda.BUILD_LOGS.items():
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line or 'smem' in line:

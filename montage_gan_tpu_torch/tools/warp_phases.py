@@ -1,35 +1,50 @@
-"""Where K3' and K4' spend their time: each kernel timed with one phase
-taken out at a time.
+"""Where the resampling kernels spend their time: K3' and K4' (the warp) and
+K5' (translate and composite), each timed with one phase taken out at a
+time.
 
-    python -m montage_gan_tpu_torch.tools.warp_phases
+    python -m montage_gan_tpu_torch.tools.warp_phases [--only warp|composite]
+        [--parent _trees/parent]
 
 ``ncu`` does not run on the card's machine, so the phases are measured by
-difference: each variant is ``csrc/warp.cu`` with one phase disabled by a
+difference: each variant is the kernel's source with one phase disabled by a
 text substitution (each must match exactly once), built with ``nvcc`` into
-``build/warp_phases/<variant>/`` and timed through the C entry points at the
-main shape ([16, 396, 396, 4] ↔ [16, 524, 524, 4], theta from
-``sample_warp_theta`` at p = 0.6), device time with L2 cold
-(``timing.device_ms``).  A variant's saving over ``full`` is the cost of the
-phase it takes out; the results are wrong by construction and only timed.
+``build/phases/<source>/<variant>/`` and timed through the C entry points,
+device time with L2 cold (``timing.device_ms``).  A variant's saving over
+``full`` is the cost of the phase it takes out; the results are wrong by
+construction and only timed.
+
+* K3'/K4' at the main shape ([16, 396, 396, 4] ↔ [16, 524, 524, 4], theta
+  from ``sample_warp_theta`` at p = 0.6).
+* K5' at the sampling path's stack shape [8, 9, 256, 256, 4], shifts within
+  ±0.1: this tree's kernel (launch, plan and tables, staging copies,
+  compositing, stores), the tiled kernel at other tiles and ring depths,
+  the small launch [3, 5, 67, 45, 4] at the plan's tiles and others, and,
+  with
+  ``--parent`` (the root of another checkout, e.g. ``git archive <commit> |
+  tar -x -C _trees/parent``), that tree's ``csrc/composite.cu`` (tap loads,
+  A-over-B divisions, stores) beside it.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import shutil
 import subprocess
+from pathlib import Path
 
 import torch
 
 from .. import set_fp32_precision
 from ..ops import affine_warp as aw
+from ..ops import composite as comp
 from ..ops import cuda
 from ..training import augment as aug
 from ..training.draws import Draws
 from .timing import card_line, device_ms
 
 # variant -> (kernel, [(text of csrc/warp.cu, its replacement)])
-VARIANTS = {
+WARP_VARIANTS = {
     'full': ('both', []),
     "K3' plan only": ('forward', [(
         'const MgtForwardPlan p = *plan;',
@@ -67,47 +82,109 @@ VARIANTS = {
          'src[a * cols]);')]),
 }
 
+# This tree's K5' (csrc/composite.cu): variant -> substitutions.  "no
+# stores" keeps the canvas alive behind a test that never holds.
+_NO_COPIES = ('const uint32_t bytes = staged ? 16u * w.rows * w.cols : 0u;',
+              'const uint32_t bytes = 0u;')
+_NO_COMPOSITING = ('if (tid < ncols) {\n            const MgtWindow w = window[st];',
+                   'if (tid < ncols && s.L < 0) {\n'
+                   '            const MgtWindow w = window[st];')
+_NO_STORES = ('if (r < nrows)\n                __stcs(',
+              'if (r < nrows && acc[r].w == -1.0f)\n                __stcs(')
+COMPOSITE_VARIANTS = {
+    'full': [],
+    "K5' launch only": [('    const int tid = threadIdx.x;\n    const int b = blockIdx.z;',
+                         '    if (s.L > 0) return;\n'
+                         '    const int tid = threadIdx.x;\n    const int b = blockIdx.z;')],
+    "K5' plan and tables only": [_NO_COPIES, _NO_COMPOSITING, _NO_STORES],
+    "K5' no staging copies": [_NO_COPIES],
+    "K5' no compositing": [_NO_COMPOSITING],
+    "K5' no stores": [_NO_STORES],
+}
+# The tiled K5' at other (rows, columns, stages) than the plan's default.
+COMPOSITE_PLANS = ((4, 256, 2), (4, 256, 3), (4, 256, 4), (8, 256, 3),
+                   (16, 256, 2), (4, 128, 2), (4, 128, 3), (8, 128, 2),
+                   (8, 128, 3), (16, 128, 2))
+# K5' on a launch of fewer tiles than SMs ([3, 5, 67, 45, 4], shifts in
+# ±1.5): the plan's choice, then these (rows, columns, stages).
+SMALL_PLANS = ((8, 256, 2), (4, 256, 3), (4, 256, 4))
+# A parent tree's K5' (its csrc/composite.cu; the per-pixel kernel before
+# the tiled one).
+PARENT_COMPOSITE_VARIANTS = {
+    'full': [],
+    "parent K5' no tap loads": [(
+        '? mgt_load4(img + (static_cast<int64_t>(yy) * s.W + xx) * 4, VEC4)',
+        '? make_float4(xx, yy, 0.0f, 0.5f)')],
+    "parent K5' no A-over-B divisions": [(
+        '    __fdiv_rn(__fadd_rn(__fmul_rn(c.x, la), __fmul_rn(canvas.x, keep)), ao),\n'
+        '                    __fdiv_rn(__fadd_rn(__fmul_rn(c.y, la), __fmul_rn(canvas.y, keep)), ao),\n'
+        '                    __fdiv_rn(__fadd_rn(__fmul_rn(c.z, la), __fmul_rn(canvas.z, keep)), ao), ao);',
+        '    __fmul_rn(__fadd_rn(__fmul_rn(c.x, la), __fmul_rn(canvas.x, keep)), ao),\n'
+        '                    __fmul_rn(__fadd_rn(__fmul_rn(c.y, la), __fmul_rn(canvas.y, keep)), ao),\n'
+        '                    __fmul_rn(__fadd_rn(__fmul_rn(c.z, la), __fmul_rn(canvas.z, keep)), ao), ao);')],
+    "parent K5' no stores": [(
+        '*reinterpret_cast<float4*>(o) = canvas;',
+        'if (canvas.w == -1.0f) *reinterpret_cast<float4*>(o) = canvas;')],
+}
+PARENT_COMPOSITE_SIGNATURE = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                              + [ctypes.c_float, ctypes.c_void_p])
 
-def build_variants():
-    """Build every variant's library, all at once; {name: ctypes CDLL}."""
-    src = (cuda.CSRC_DIR / 'warp.cu').read_text()
-    root = cuda.BUILD_DIR / 'warp_phases'
+
+def build_variants(csrc: Path, source: str, variants, symbols, argtypes,
+                   tag: str):
+    """Build ``csrc/<source>.cu`` once per variant ({name: substitutions}),
+    with the ``.cuh`` headers beside it, all at once; {name: ctypes CDLL}
+    with each of ``symbols`` bound to ``argtypes``."""
+    src = (csrc / f'{source}.cu').read_text()
+    root = cuda.BUILD_DIR / 'phases' / tag
     procs = {}
-    for i, (name, (_, subs)) in enumerate(VARIANTS.items()):
+    for i, (name, subs) in enumerate(variants.items()):
         text = src
         for old, new in subs:
             if text.count(old) != 1:
                 raise RuntimeError(f'{name}: the text to replace occurs '
-                                   f'{text.count(old)} times in warp.cu')
+                                   f'{text.count(old)} times in {source}.cu')
             text = text.replace(old, new)
         d = root / f'v{i}'
         d.mkdir(parents=True, exist_ok=True)
-        for h in cuda.CSRC_DIR.glob('*.cuh'):
+        for h in csrc.glob('*.cuh'):
             shutil.copy(h, d / h.name)
-        (d / 'warp.cu').write_text(text)
+        (d / f'{source}.cu').write_text(text)
         procs[name] = (subprocess.Popen(
             [cuda.nvcc_path(), *cuda.NVCC_FLAGS, '-I', str(d), '-o',
-             str(d / 'libwarp.so'), str(d / 'warp.cu')],
+             str(d / f'lib{source}.so'), str(d / f'{source}.cu')],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), d)
     libs = {}
     for name, (proc, d) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f'{name}: nvcc failed\n{out}')
-        lib = ctypes.CDLL(str(d / 'libwarp.so'))
-        for fn in (lib.mgt_warp_forward, lib.mgt_warp_transpose):
-            fn.argtypes = aw._SIGNATURE
+        lib = ctypes.CDLL(str(d / f'lib{source}.so'))
+        for sym in symbols:
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         libs[name] = lib
     return libs
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit('warp_phases: no CUDA device')
-    set_fp32_precision()
-    card = card_line()
-    libs = build_variants()
+def checked(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f'{what}: CUDA error {rc}')
+
+
+def report(label: str, ms: float, full: float = None) -> None:
+    if full is None:
+        print(f'  {label}: {ms:.4f}', flush=True)
+    else:
+        print(f'  {label}: {ms:.4f}  (saves {full - ms:.4f})', flush=True)
+
+
+def warp_phases(card: str) -> None:
+    variants = {name: subs for name, (_, subs) in WARP_VARIANTS.items()}
+    libs = build_variants(cuda.CSRC_DIR, 'warp', variants,
+                          ('mgt_warp_forward', 'mgt_warp_transpose'),
+                          aw._SIGNATURE, 'warp')
     gen = torch.Generator(device='cuda').manual_seed(4)
     theta, ph, pw, oh, ow = aug.sample_warp_theta(
         Draws(gen), 0.6, aug.make_augment_config('bgcfnc'), 16, 256, 256,
@@ -126,27 +203,101 @@ def main():
         p = plans[kind]
         fn, src, dst = ((lib.mgt_warp_forward, x, y) if kind == 'forward'
                         else (lib.mgt_warp_transpose, g, dx))
-        rc = fn(src.data_ptr(), theta.data_ptr(), taps.data_ptr(),
-                dst.data_ptr(), n, ph, pw, 4, oh, ow, t, 2,
-                aw.VARIANT_CODES[p.variant], p.tile[0], p.tile[1],
-                p.smem_bytes, None, stream)
-        if rc != 0:
-            raise RuntimeError(f'{kind}: CUDA error {rc}')
+        checked(fn(src.data_ptr(), theta.data_ptr(), taps.data_ptr(),
+                   dst.data_ptr(), n, ph, pw, 4, oh, ow, t, 2,
+                   aw.VARIANT_CODES[p.variant], p.tile[0], p.tile[1],
+                   p.smem_bytes, None, stream), kind)
 
     print(f"[warp phases] K3' [{n},{ph},{pw},4] -> [{n},{oh},{ow},4] tile "
           f"{plans['forward'].tile}, K4' tile {plans['transpose'].tile}; "
           f'device ms, L2 cold  card: {card}', flush=True)
     full = {}
-    for name, (kind, _) in VARIANTS.items():
+    for name, (kind, _) in WARP_VARIANTS.items():
         for k in (('forward', 'transpose') if kind == 'both' else (kind,)):
             ms = device_ms(lambda: call(libs[name], k))
-            label = "K3'" if k == 'forward' else "K4'"
             if name == 'full':
                 full[k] = ms
-                print(f'  {label} full: {ms:.4f}', flush=True)
+                report(f"{'K3' if k == 'forward' else 'K4'}' full", ms)
             else:
-                print(f'  {name}: {ms:.4f}  (saves {full[k] - ms:.4f})',
-                      flush=True)
+                report(name, ms, full[k])
+
+
+def composite_phases(card: str, parent: Path = None) -> None:
+    b, l, h, w = 8, 9, 256, 256
+    gen = torch.Generator(device='cuda').manual_seed(9)
+    layers = torch.rand(b, l, h, w, 4, device='cuda', generator=gen)
+    shifts = (torch.rand(b, l, 2, device='cuda', generator=gen) * 2 - 1) * 0.1
+    small = torch.rand(3, 5, 67, 45, 4, device='cuda', generator=gen)
+    small_shifts = (torch.rand(3, 5, 2, device='cuda', generator=gen) * 2
+                    - 1) * 1.5
+    out = torch.empty(b, h, w, 4, device='cuda')
+    stream = torch.cuda.current_stream().cuda_stream
+    plan = comp.composite_plan(b, h, w)
+    libs = build_variants(cuda.CSRC_DIR, 'composite', COMPOSITE_VARIANTS,
+                          ('mgt_translate_composite',),
+                          comp.kernel.argtypes, 'composite')
+
+    def call(lib, p=plan, x=layers, t=shifts):
+        checked(lib.mgt_translate_composite(
+            x.data_ptr(), t.data_ptr(), out.data_ptr(), *x.shape[:4], 0.0,
+            comp.VARIANT_CODES[p.variant], p.rows, p.tile_w, p.stages,
+            stream), 'composite')
+
+    print(f"[composite phases] K5' [{b},{l},{h},{w},4], shifts within "
+          f'+-0.1; plan {plan.variant} {plan.rows}x{plan.tile_w}, '
+          f'{plan.stages} stages, {plan.smem_bytes} B shared; device ms, '
+          f'L2 cold  card: {card}', flush=True)
+    full = None
+    for name in COMPOSITE_VARIANTS:
+        ms = device_ms(lambda: call(libs[name]))
+        if name == 'full':
+            full = ms
+            report("K5' full", ms)
+        else:
+            report(name, ms, full)
+    for rows, tile_w, stages in COMPOSITE_PLANS:
+        p = comp.composite_plan(b, h, w, True, rows, tile_w, stages)
+        ms = device_ms(lambda: call(libs['full'], p))
+        report(f"K5' {p.variant} {rows}x{p.tile_w}, {stages} stages "
+               f'({p.smem_bytes} B shared)', ms, full)
+    chosen = comp.composite_plan(3, 67, 45)
+    for p in (chosen, *(comp.composite_plan(3, 67, 45, True, *rts)
+                        for rts in SMALL_PLANS)):
+        ms = device_ms(lambda: call(libs['full'], p, small, small_shifts))
+        report(f"K5' [3,5,67,45,4] {p.variant} {p.rows}x{p.tile_w}, "
+               f"{p.stages} stages{' (the plan)' if p is chosen else ''}", ms)
+    if parent is None:
+        return
+    old = build_variants(parent / 'montage_gan_tpu_torch' / 'csrc',
+                         'composite', PARENT_COMPOSITE_VARIANTS,
+                         ('mgt_translate_composite',),
+                         PARENT_COMPOSITE_SIGNATURE, 'composite_parent')
+    full = None
+    for name, lib in old.items():
+        ms = device_ms(lambda: checked(lib.mgt_translate_composite(
+            layers.data_ptr(), shifts.data_ptr(), out.data_ptr(), b, l, h, w,
+            0.0, stream), 'parent composite'))
+        if name == 'full':
+            full = ms
+            report(f"{parent.name} K5' full", ms)
+        else:
+            report(name, ms, full)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--only', choices=('warp', 'composite'), default=None)
+    ap.add_argument('--parent', type=Path, default=None,
+                    help="another checkout's root: time its K5' too")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit('warp_phases: no CUDA device')
+    set_fp32_precision()
+    card = card_line()
+    if args.only in (None, 'warp'):
+        warp_phases(card)
+    if args.only in (None, 'composite'):
+        composite_phases(card, args.parent and args.parent.resolve())
     print(card)
 
 

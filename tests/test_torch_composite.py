@@ -1,7 +1,7 @@
 """K5' (translate and composite) on the CPU: its plain version against the
 TPU kernel in interpret mode, as ``tests/test_pallas_kernels.py`` runs it,
 and the kernel's arithmetic (emulated: the plain version's taps, then the
-A-over-B recurrence in layer order) against both.
+A-over-B recurrence in layer order on a premultiplied canvas) against both.
 
 Tolerances: against the TPU kernel ``rtol 1e-4, atol 1e-5``, the JAX
 package's own for that kernel; the emulated kernel against the plain
@@ -58,6 +58,7 @@ def test_fused_matches_pallas_interpret(name, monkeypatch):
     kernels = emulate_kernels(monkeypatch)
     out = tcomp.translate_and_composite_fused(lt, tt, pad)
     assert kernels['composite'].launches == 1
+    assert dict(kernels['composite'].variants) == {'tiled': 1}
     np.testing.assert_allclose(out.numpy(), ref, **TOL_PALLAS)
     torch.testing.assert_close(chip_smoke.premultiplied(out),
                                chip_smoke.premultiplied(plain),
