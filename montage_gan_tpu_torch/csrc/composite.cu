@@ -14,8 +14,9 @@
 // it must read 75.5 MB and write 8.4 MB (25 us at 3.35 TB/s) against a few
 // dozen float32 operations per pixel and layer.  The design:
 //
-//  * Row tiles.  A block owns R output rows (a template parameter) by
-//    tile_w columns of one sample; a thread owns one column and all R rows,
+//  * Row tiles.  A block owns R output rows (a template parameter, 8 or 4)
+//    by tile_w = min(256, W) columns of one sample; a thread owns one
+//    column and all R rows,
 //    so its canvas (R float4s) stays in registers over the layer loop.  Any
 //    H and W: a tile past the edge is masked.
 //  * Tap tables per (tile, layer) in shared memory: the columns' (ix0, fx)
@@ -33,12 +34,11 @@
 //    bound the window).  Each window row is one contiguous run of 16-byte
 //    pixels, and a full-width window is one run; warp 0 issues one
 //    cp.async.bulk per run, completing on the stage's mbarrier with its byte
-//    count, `stages` layers ahead of the compositing, so the next layers'
-//    windows are in flight while one composites.  Rounding can move floor()
-//    by 0 or 2 between neighbours, so a window has at most R + 2 rows and
-//    tile_w + 2 columns (the stage's size; tests/test_torch_composite_plans
-//    .py holds the bound).  A layer whose window would not fit reads its
-//    taps from device memory instead; no extent below 2^21 makes one.
+//    count, two layers ahead of the compositing, so the next layer's window
+//    is in flight while one composites.  Rounding can move floor() by 0 or
+//    2 between neighbours, so a window has at most R + 2 rows and tile_w + 2
+//    columns (the stage's size; tests/test_torch_composite_plans.py holds
+//    the bound, and a window past it traps).
 //  * Each source row once.  A regular layer (nearly all) loads the R + 1
 //    source rows of its column with no branch, so the loads issue together,
 //    and lerps each row horizontally once; an irregular one loads a row's
@@ -51,11 +51,13 @@
 //
 // R = 8 by 256 columns and two stages (86.8 KB of shared memory, 128
 // registers a thread: two blocks an SM, the 256 tiles of the main shape in
-// one wave) were the fastest of the plans tools/warp_phases.py times; deeper
-// rings or larger tiles leave fewer blocks per SM or a second wave.  A
-// launch of fewer 8-row tiles than SMs takes R = 4 (more blocks; the plan in
-// ops/composite.py).  A persistent grid with the ring running across tiles
-// was slower (more registers, fewer blocks an SM).
+// one wave) were the fastest of the plans tools/warp_phases.py times (it
+// builds the others by changing COMPOSITE_STAGES, COMPOSITE_TILE_W or the
+// rows of the 8-row instance); deeper rings or larger tiles leave fewer
+// blocks per SM or a second wave.  A launch of fewer 8-row tiles than the
+// card has SMs takes R = 4 (more blocks; the plan in ops/composite.py).  A
+// persistent grid with the ring running across tiles was slower (more
+// registers, fewer blocks an SM).
 //
 // Two variants of the same kernel, chosen by the Python wrapper
 // (ops/composite.py::composite_plan) and counted there: `tiled` (the ring;
@@ -69,9 +71,8 @@
 
 enum MgtCompositeVariant { COMPOSITE_DIRECT = 0, COMPOSITE_TILED = 1 };
 
-constexpr int COMPOSITE_MAX_STAGES = 4;
-constexpr int COMPOSITE_MAX_TILE_W = 256;
-constexpr int COMPOSITE_MAX_SMEM = 232448;   // 227 KB, an H100 block's limit
+constexpr int COMPOSITE_STAGES = 2;     // the ring's depth
+constexpr int COMPOSITE_TILE_W = 256;   // a tile's columns at most: one thread each
 
 struct MgtCompositeShape {
     int B, L, H, W;
@@ -85,7 +86,7 @@ struct MgtTap {
 
 // A layer's source window for one tile: image rows [y0, y0 + rows) by
 // columns [x0, x0 + cols), stored row-major with pitch cols.  rows = 0: no
-// tap of the tile lies in the image; rows < 0: not staged.  base is the
+// tap of the tile lies in the image.  base is the
 // first row's iy0; regular: row r's is base + r for every row of the tile
 // (the rule: rounding breaks it only where a coordinate lies within a few
 // ulps of an integer).
@@ -106,8 +107,8 @@ __host__ __device__ constexpr int composite_stage_bytes(int R, int tile_w, bool 
            static_cast<int>(sizeof(MgtWindow)) + 8;
 }
 
-__device__ __forceinline__ float4 mgt_load4(const float* p, bool vec4) {
-    if (vec4) return __ldg(reinterpret_cast<const float4*>(p));
+// A pixel of a layer tensor off 16-byte alignment, by 4-byte loads.
+__device__ __forceinline__ float4 mgt_load4(const float* p) {
     return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
 }
 
@@ -175,7 +176,7 @@ __device__ __forceinline__ float4 mgt_straight(float4 p) {
 // from the staged window `win` (STAGED) or the layer's image `img` in
 // device memory.  A tap outside the image is `pad`; its load reads a safe
 // address and is discarded, so the loads of many rows issue together.
-template <bool STAGED, bool VEC4>
+template <bool STAGED>
 __device__ __forceinline__ float4 mgt_hrow(int yy, MgtTap cx, bool left, bool right,
                                            const MgtWindow& w, const float4* win,
                                            const float* img, int H, int W, float4 pad) {
@@ -188,8 +189,8 @@ __device__ __forceinline__ float4 mgt_hrow(int yy, MgtTap cx, bool left, bool ri
         b = win[b_ok ? i + 1 : 0];
     } else {
         const int64_t i = (static_cast<int64_t>(yy) * W + cx.i0) * 4;
-        a = mgt_load4(img + (a_ok ? i : 0), VEC4);
-        b = mgt_load4(img + (b_ok ? i + 4 : 0), VEC4);
+        a = mgt_load4(img + (a_ok ? i : 0));
+        b = mgt_load4(img + (b_ok ? i + 4 : 0));
     }
     return mgt_lerp4(a_ok ? a : pad, b_ok ? b : pad, cx.f);
 }
@@ -199,7 +200,7 @@ __device__ __forceinline__ float4 mgt_hrow(int yy, MgtTap cx, bool left, bool ri
 // A regular layer reads source rows base .. base + R, each once, with no
 // branch; otherwise a row's taps are loaded where they differ from the
 // last row's.
-template <int R, bool STAGED, bool VEC4>
+template <int R, bool STAGED>
 __device__ __forceinline__ void mgt_layer_over(float4 (&acc)[R], MgtTap cx, const MgtTap* row,
                                                int nrows, const MgtWindow& w, const float4* win,
                                                const float* img, int H, int W, float4 pad) {
@@ -211,7 +212,7 @@ __device__ __forceinline__ void mgt_layer_over(float4 (&acc)[R], MgtTap cx, cons
         float4 h[R + 1];
 #pragma unroll
         for (int j = 0; j <= R; ++j)
-            h[j] = mgt_hrow<STAGED, VEC4>(w.base + j, cx, left, right, w, win, img, H, W, pad);
+            h[j] = mgt_hrow<STAGED>(w.base + j, cx, left, right, w, win, img, H, W, pad);
 #pragma unroll
         for (int r = 0; r < R; ++r)
             if (r < nrows) acc[r] = mgt_over(acc[r], mgt_lerp4(h[r], h[r + 1], row[r].f));
@@ -226,8 +227,8 @@ __device__ __forceinline__ void mgt_layer_over(float4 (&acc)[R], MgtTap cx, cons
             if (cy.i0 != seen) {
                 top = cy.i0 == seen + 1
                           ? bot
-                          : mgt_hrow<STAGED, VEC4>(cy.i0, cx, left, right, w, win, img, H, W, pad);
-                bot = mgt_hrow<STAGED, VEC4>(cy.i0 + 1, cx, left, right, w, win, img, H, W, pad);
+                          : mgt_hrow<STAGED>(cy.i0, cx, left, right, w, win, img, H, W, pad);
+                bot = mgt_hrow<STAGED>(cy.i0 + 1, cx, left, right, w, win, img, H, W, pad);
                 seen = cy.i0;
             }
             acc[r] = mgt_over(acc[r], mgt_lerp4(top, bot, cy.f));
@@ -237,14 +238,13 @@ __device__ __forceinline__ void mgt_layer_over(float4 (&acc)[R], MgtTap cx, cons
 
 // One block per tile: rows [blockIdx.y R, + R) by columns [blockIdx.x
 // tile_w, + tile_w) of sample blockIdx.z; one thread per column.  TILED:
-// the windows come through the ring of `stages` (2-4) stages; else the
-// taps are read from device memory with 4-byte loads (the ring then holds
-// the tables only).
+// the windows come through the ring; else the taps are read from device
+// memory with 4-byte loads (the ring then holds the tables only).
 template <int R, bool TILED>
-__global__ void __launch_bounds__(COMPOSITE_MAX_TILE_W)
+__global__ void __launch_bounds__(COMPOSITE_TILE_W)
 composite_kernel(const float* __restrict__ layers, const float* __restrict__ shifts,
-                 float* __restrict__ out, MgtCompositeShape s, float pad_value, int tile_w,
-                 int stages) {
+                 float* __restrict__ out, MgtCompositeShape s, float pad_value, int tile_w) {
+    constexpr int stages = COMPOSITE_STAGES;
     extern __shared__ __align__(128) unsigned char mgt_composite_smem[];
     const int cap = TILED ? composite_capacity(R, tile_w) : 0;
     float4* ring = reinterpret_cast<float4*>(mgt_composite_smem);
@@ -282,10 +282,9 @@ composite_kernel(const float* __restrict__ layers, const float* __restrict__ shi
             if (tid < nrows) row_tab[st * R + tid] = cy;
             w.base = __shfl_sync(0xffffffffu, cy.i0, 0);
             w.regular = __all_sync(0xffffffffu, tid >= nrows || cy.i0 == w.base + tid);
-            const bool staged = TILED && w.rows <= R + 2 && w.cols <= tile_w + 2;
-            if (!staged) w.rows = -1;
             if (TILED) {
-                const uint32_t bytes = staged ? 16u * w.rows * w.cols : 0u;
+                if (w.rows > R + 2 || w.cols > tile_w + 2) __trap();   // past the stage
+                const uint32_t bytes = 16u * w.rows * w.cols;
                 if (tid == 0) mgt_mbar_arrive_expect(full + st, bytes);
                 __syncwarp();
                 if (bytes) {
@@ -329,12 +328,8 @@ composite_kernel(const float* __restrict__ layers, const float* __restrict__ shi
             const MgtWindow w = window[st];
             const MgtTap cx = col_tab[st * tile_w + tid];
             const float* img = sample + l * plane;
-            if (TILED && w.rows >= 0)
-                mgt_layer_over<R, true, true>(acc, cx, row_tab + st * R, nrows, w, ring + st * cap,
-                                              img, s.H, s.W, pad);
-            else
-                mgt_layer_over<R, false, TILED>(acc, cx, row_tab + st * R, nrows, w,
-                                                ring + st * cap, img, s.H, s.W, pad);
+            mgt_layer_over<R, TILED>(acc, cx, row_tab + st * R, nrows, w, ring + st * cap, img,
+                                     s.H, s.W, pad);
         }
         if (l + 1 < s.L) {
             // every thread is done with stage st: refill it `stages` layers
@@ -358,67 +353,58 @@ composite_kernel(const float* __restrict__ layers, const float* __restrict__ shi
     }
 }
 
+static_assert(COMPOSITE_STAGES >= 2, "a stage is refilled a barrier before it is read");
+
 template <int R, bool TILED>
 static cudaError_t launch_composite(const float* layers, const float* shifts, float* out,
-                                    MgtCompositeShape s, float pad_value, int tile_w, int stages,
-                                    cudaStream_t stream) {
+                                    MgtCompositeShape s, float pad_value, cudaStream_t stream) {
+    constexpr int max_smem = COMPOSITE_STAGES * composite_stage_bytes(R, COMPOSITE_TILE_W, TILED);
+    static_assert(max_smem <= 232448, "227 KB, an H100 block's shared memory");
     static bool ready[64] = {};
+    const int tile_w = s.W < COMPOSITE_TILE_W ? s.W : COMPOSITE_TILE_W;
     const dim3 grid((s.W + tile_w - 1) / tile_w, (s.H + R - 1) / R, s.B);
     if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
-    const int smem = stages * composite_stage_bytes(R, tile_w, TILED);
-    if (smem > COMPOSITE_MAX_SMEM) return cudaErrorInvalidValue;
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return e;
     if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-    if (!ready[dev]) {   // once per instance and device: up to 227 KB
+    if (!ready[dev]) {   // once per instance and device: past the default 48 KB
         e = cudaFuncSetAttribute(composite_kernel<R, TILED>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, COMPOSITE_MAX_SMEM);
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
         if (e != cudaSuccess) return e;
         ready[dev] = true;
     }
+    const int smem = COMPOSITE_STAGES * composite_stage_bytes(R, tile_w, TILED);
     const int threads = (tile_w + 31) / 32 * 32;
     composite_kernel<R, TILED><<<grid, threads, smem, stream>>>(layers, shifts, out, s, pad_value,
-                                                                tile_w, stages);
+                                                                tile_w);
     return cudaGetLastError();
 }
 
 template <bool TILED>
-static cudaError_t launch_rows(int R, const float* layers, const float* shifts, float* out,
-                               MgtCompositeShape s, float pad_value, int tile_w, int stages,
-                               cudaStream_t stream) {
-    switch (R) {
-        case 4:
-            return launch_composite<4, TILED>(layers, shifts, out, s, pad_value, tile_w, stages,
-                                              stream);
-        case 8:
-            return launch_composite<8, TILED>(layers, shifts, out, s, pad_value, tile_w, stages,
-                                              stream);
-        case 16:
-            return launch_composite<16, TILED>(layers, shifts, out, s, pad_value, tile_w, stages,
-                                               stream);
-        default:
-            return cudaErrorInvalidValue;
-    }
+static cudaError_t launch_rows(int rows, const float* layers, const float* shifts, float* out,
+                               MgtCompositeShape s, float pad_value, cudaStream_t stream) {
+    if (rows == 8) return launch_composite<8, TILED>(layers, shifts, out, s, pad_value, stream);
+    if (rows == 4) return launch_composite<4, TILED>(layers, shifts, out, s, pad_value, stream);
+    return cudaErrorInvalidValue;
 }
 
 // layers: [B, L, H, W, 4] float32; shifts: [B, L, 2] float32 (dx, dy), not
 // yet clamped; out: [B, H, W, 4] float32, 16-byte aligned.  All contiguous,
 // on the device.  variant: MgtCompositeVariant (tiled needs `layers`
-// 16-byte aligned); rows: R of a tile (4, 8 or 16); tile_w: its columns
-// (1-256); stages: 2-4.  Returns a cudaError_t code.
+// 16-byte aligned); rows: R of a tile, 8 or 4.  A tile has min(256, W)
+// columns.  Returns a cudaError_t code.
 extern "C" int mgt_translate_composite(const float* layers, const float* shifts, float* out,
                                        int B, int L, int H, int W, float pad_value, int variant,
-                                       int rows, int tile_w, int stages, void* stream) {
-    if (B <= 0 || L <= 0 || H <= 0 || W <= 0 || tile_w < 1 || tile_w > COMPOSITE_MAX_TILE_W
-        || stages < 2 || stages > COMPOSITE_MAX_STAGES || !mgt_aligned(out, 16))
+                                       int rows, void* stream) {
+    if (B <= 0 || L <= 0 || H <= 0 || W <= 0 || !mgt_aligned(out, 16))
         return cudaErrorInvalidValue;
     const MgtCompositeShape s{B, L, H, W};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (variant == COMPOSITE_TILED) {
         if (!mgt_aligned(layers, 16)) return cudaErrorInvalidValue;
-        return launch_rows<true>(rows, layers, shifts, out, s, pad_value, tile_w, stages, st);
+        return launch_rows<true>(rows, layers, shifts, out, s, pad_value, st);
     }
     if (variant != COMPOSITE_DIRECT) return cudaErrorInvalidValue;
-    return launch_rows<false>(rows, layers, shifts, out, s, pad_value, tile_w, stages, st);
+    return launch_rows<false>(rows, layers, shifts, out, s, pad_value, st);
 }

@@ -22,7 +22,9 @@ tensor: each block stages its tile's source window per layer by bulk copy,
 in a ring over the layers) and ``direct`` (the same tiles, taps read from
 device memory).  ``axis_taps`` and ``tile_window`` give the tiles' tap
 tables and windows as the kernel computes them (the CPU tests hold them),
-``needed_bytes`` the bytes a launch must move.
+``needed_bytes`` the bytes a launch must move.  The wrapper records on
+``kernel.bytes`` every byte of its tensors, an upper count that needs no
+copy of the shifts to the host.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -40,22 +42,17 @@ from .grid_sample import translate_sample
 
 kernel = CudaKernel('composite', 'mgt_translate_composite',
                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                    + [ctypes.c_float] + [ctypes.c_int] * 4
+                    + [ctypes.c_float] + [ctypes.c_int] * 2
                     + [ctypes.c_void_p])
 
-# csrc/composite.cu's variant codes and limits.
+# csrc/composite.cu's variant codes and constants: a tile is ROWS (or, on a
+# launch of fewer ROWS-row tiles than the card has SMs, SMALL_ROWS) rows by
+# min(TILE_W, W) columns, staged through a ring of STAGES layers.
 VARIANT_CODES = {'direct': 0, 'tiled': 1}
-ROW_CHOICES = (4, 8, 16)    # R, the rows of a tile (template instances)
-MAX_TILE_W = 256            # a tile's columns: one thread each
-MAX_STAGES = 4
-MAX_SMEM = 232448           # 227 KB, an H100 block's shared memory
-# The plan's defaults: R rows by TILE_W columns, a ring of STAGES layers;
-# a launch of fewer tiles than an H100 has SMs takes SMALL_ROWS-row tiles.
 ROWS = 8
+SMALL_ROWS = 4
 TILE_W = 256
 STAGES = 2
-SMS = 132
-SMALL_ROWS = 4
 
 
 def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -128,13 +125,12 @@ def stage_bytes(rows: int, tile_w: int, tiled: bool) -> int:
 
 @dataclass(frozen=True)
 class CompositePlan:
-    """One launch of K5': its variant, tile (``rows`` × ``tile_w``), ring
-    depth, grid (tiles along x, along y, samples), threads per block and
-    dynamic shared memory."""
+    """One launch of K5': its variant, tile (``rows`` × ``tile_w``), grid
+    (tiles along x, along y, samples), threads per block and dynamic shared
+    memory."""
     variant: str
     rows: int
     tile_w: int
-    stages: int
     grid: Tuple[int, int, int]
     threads: int
     smem_bytes: int
@@ -154,32 +150,28 @@ class CompositePlan:
 
 
 @functools.lru_cache(maxsize=256)
-def composite_plan(b: int, h: int, w: int, aligned: bool = True,
-                   rows: Optional[int] = None, tile_w: int = TILE_W,
-                   stages: int = STAGES) -> CompositePlan:
-    """The launch of K5' on ``b`` samples of ``h`` × ``w``: ``tiled`` for
-    a 16-byte aligned layer tensor whose ring fits in shared memory, else
-    ``direct``.  A tile is ``rows`` × min(``tile_w``, ``w``); ``rows``
-    defaults to ROWS, or to SMALL_ROWS where ROWS-row tiles would be fewer
-    than the card's SMs (such a launch is bound by latency, not bytes, and
-    more blocks shorten it)."""
-    tw = min(tile_w, w)
-    if rows is None:
-        rows = SMALL_ROWS if -(-w // tw) * -(-h // ROWS) * b < SMS else ROWS
-    if rows not in ROW_CHOICES or not 1 <= tile_w <= MAX_TILE_W \
-            or not 2 <= stages <= MAX_STAGES:
-        raise ValueError(f'K5\' tile {rows} x {tile_w}, {stages} stages: rows '
-                         f'in {ROW_CHOICES}, 1-{MAX_TILE_W} columns, 2-'
-                         f'{MAX_STAGES} stages')
-    tiled = aligned and stages * stage_bytes(rows, tw, True) <= MAX_SMEM
+def composite_plan(b: int, h: int, w: int, sms: int,
+                   aligned: bool = True) -> CompositePlan:
+    """The launch of K5' on ``b`` samples of ``h`` × ``w`` on a card of
+    ``sms`` SMs: ``tiled`` for a 16-byte aligned layer tensor, else
+    ``direct``.  A tile is ROWS × min(TILE_W, ``w``), or SMALL_ROWS rows
+    where ROWS-row tiles would be fewer than the SMs (such a launch is bound
+    by latency, not bytes, and more blocks shorten it)."""
+    tw = min(TILE_W, w)
+    rows = SMALL_ROWS if -(-w // tw) * -(-h // ROWS) * b < sms else ROWS
     grid = (-(-w // tw), -(-h // rows), b)
     if grid[1] > 65535 or b > 65535:
         raise ValueError(f'K5\' grid {grid} exceeds the launch limits')
-    return CompositePlan(variant='tiled' if tiled else 'direct', rows=rows,
-                         tile_w=tw, stages=stages, grid=grid,
-                         threads=-(-tw // 32) * 32,
-                         smem_bytes=stages * stage_bytes(rows, tw, tiled),
+    return CompositePlan(variant='tiled' if aligned else 'direct', rows=rows,
+                         tile_w=tw, grid=grid, threads=-(-tw // 32) * 32,
+                         smem_bytes=STAGES * stage_bytes(rows, tw, aligned),
                          hw=(h, w))
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 _F32 = np.float32
@@ -207,15 +199,15 @@ class Window(NamedTuple):
     """A layer's source window for one tile (csrc MgtWindow): image rows
     ``[y0, y0 + rows)`` by columns ``[x0, x0 + cols)``, ``rows`` 0 where no
     tap lies in the image; ``base``, the first row's iy0; ``regular``: row
-    r's iy0 is ``base + r`` for every row of the tile; ``staged``: it fits
-    the stage."""
+    r's iy0 is ``base + r`` for every row of the tile; ``fits``: it fits a
+    stage of the tiled variant (the kernel traps where one does not)."""
     y0: int
     x0: int
     rows: int
     cols: int
     base: int
     regular: bool
-    staged: bool
+    fits: bool
 
 
 def tile_window(plan: CompositePlan, shift, ty: int, tx: int) -> Window:
@@ -231,11 +223,10 @@ def tile_window(plan: CompositePlan, shift, ty: int, tx: int) -> Window:
     r0, r1 = max(base, 0), min(int(r[-1]) + 1, h - 1)
     c0, c1 = max(int(c[0]), 0), min(int(c[1]) + 1, w - 1)
     if r1 < r0 or c1 < c0:
-        return Window(0, 0, 0, 0, base, regular, plan.variant == 'tiled')
+        return Window(0, 0, 0, 0, base, regular, True)
     rows, cols = r1 - r0 + 1, c1 - c0 + 1
-    staged = plan.variant == 'tiled' and rows <= plan.rows + 2 \
-        and cols <= plan.tile_w + 2
-    return Window(r0, c0, rows, cols, base, regular, staged)
+    return Window(r0, c0, rows, cols, base, regular,
+                  rows <= plan.rows + 2 and cols <= plan.tile_w + 2)
 
 
 def needed_bytes(layers_shape, shifts) -> int:
@@ -275,12 +266,13 @@ def translate_and_composite_cuda(layers: torch.Tensor,
                          f'[{b}, {l}, 2]')
     layers = layers.contiguous()
     translations = translations.contiguous()
-    plan = composite_plan(b, h, w, layers.data_ptr() % 16 == 0)
+    plan = composite_plan(b, h, w, sm_count(layers.device),
+                          layers.data_ptr() % 16 == 0)
     out = torch.empty(b, h, w, 4, dtype=torch.float32, device=layers.device)
     kernel.launch(layers.data_ptr(), translations.data_ptr(), out.data_ptr(),
                   b, l, h, w, float(pad_value), VARIANT_CODES[plan.variant],
-                  plan.rows, plan.tile_w, plan.stages,
-                  stream_handle(layers.get_device()), variant=plan.variant,
+                  plan.rows, stream_handle(layers.get_device()),
+                  variant=plan.variant,
                   nbytes=tensor_bytes(layers, translations, out))
     return out
 

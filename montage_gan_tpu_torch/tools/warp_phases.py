@@ -17,12 +17,15 @@ construction and only timed.
   from ``sample_warp_theta`` at p = 0.6).
 * K5' at the sampling path's stack shape [8, 9, 256, 256, 4], shifts within
   ±0.1: this tree's kernel (launch, plan and tables, staging copies,
-  compositing, stores), the tiled kernel at other tiles and ring depths,
-  the small launch [3, 5, 67, 45, 4] at the plan's tiles and others, and,
-  with
-  ``--parent`` (the root of another checkout, e.g. ``git archive <commit> |
-  tar -x -C _trees/parent``), that tree's ``csrc/composite.cu`` (tap loads,
-  A-over-B divisions, stores) beside it.
+  compositing, stores), and other tiles and ring depths, each built by
+  changing one of the source's constants.  With ``--parent`` (the root of
+  another checkout, e.g. ``git archive <commit> | tar -x -C
+  _trees/parent``), that tree's ``csrc/composite.cu`` (tap loads, A-over-B
+  divisions, stores) beside it.
+* K5''s small-launch rule: on the launches it changes ([1-4, 9, 256, 256,
+  4], shifts within ±0.1, and [3, 5, 67, 45, 4], shifts in ±1.5), 8-row
+  against 4-row tiles in turns (8, 4, 4, 8), with the parent's kernel
+  before and after where ``--parent`` is given.
 """
 
 from __future__ import annotations
@@ -84,7 +87,7 @@ WARP_VARIANTS = {
 
 # This tree's K5' (csrc/composite.cu): variant -> substitutions.  "no
 # stores" keeps the canvas alive behind a test that never holds.
-_NO_COPIES = ('const uint32_t bytes = staged ? 16u * w.rows * w.cols : 0u;',
+_NO_COPIES = ('const uint32_t bytes = 16u * w.rows * w.cols;',
               'const uint32_t bytes = 0u;')
 _NO_COMPOSITING = ('if (tid < ncols) {\n            const MgtWindow w = window[st];',
                    'if (tid < ncols && s.L < 0) {\n'
@@ -101,13 +104,16 @@ COMPOSITE_VARIANTS = {
     "K5' no compositing": [_NO_COMPOSITING],
     "K5' no stores": [_NO_STORES],
 }
-# The tiled K5' at other (rows, columns, stages) than the plan's default.
-COMPOSITE_PLANS = ((4, 256, 2), (4, 256, 3), (4, 256, 4), (8, 256, 3),
-                   (16, 256, 2), (4, 128, 2), (4, 128, 3), (8, 128, 2),
-                   (8, 128, 3), (16, 128, 2))
-# K5' on a launch of fewer tiles than SMs ([3, 5, 67, 45, 4], shifts in
-# ±1.5): the plan's choice, then these (rows, columns, stages).
-SMALL_PLANS = ((8, 256, 2), (4, 256, 3), (4, 256, 4))
+# The tiled K5' at other tiles and ring depths, run as its 8-row tiles:
+# label -> substitutions of the source's constants.
+_EIGHT_ROWS = 'if (rows == 8) return launch_composite<8, TILED>'
+COMPOSITE_TILES = {
+    "K5' 8x256, 3 stages": [('constexpr int COMPOSITE_STAGES = 2;',
+                             'constexpr int COMPOSITE_STAGES = 3;')],
+    "K5' 8x128, 2 stages": [('constexpr int COMPOSITE_TILE_W = 256;',
+                             'constexpr int COMPOSITE_TILE_W = 128;')],
+    "K5' 16x256, 2 stages": [(_EIGHT_ROWS, _EIGHT_ROWS.replace('<8', '<16'))],
+}
 # A parent tree's K5' (its csrc/composite.cu; the per-pixel kernel before
 # the tiled one).
 PARENT_COMPOSITE_VARIANTS = {
@@ -232,56 +238,65 @@ def composite_phases(card: str, parent: Path = None) -> None:
                     - 1) * 1.5
     out = torch.empty(b, h, w, 4, device='cuda')
     stream = torch.cuda.current_stream().cuda_stream
-    plan = comp.composite_plan(b, h, w)
-    libs = build_variants(cuda.CSRC_DIR, 'composite', COMPOSITE_VARIANTS,
+    sms = comp.sm_count(layers.device)
+    plan = comp.composite_plan(b, h, w, sms)
+    libs = build_variants(cuda.CSRC_DIR, 'composite',
+                          {**COMPOSITE_VARIANTS, **COMPOSITE_TILES},
                           ('mgt_translate_composite',),
                           comp.kernel.argtypes, 'composite')
+    old = None if parent is None else build_variants(
+        parent / 'montage_gan_tpu_torch' / 'csrc', 'composite',
+        PARENT_COMPOSITE_VARIANTS, ('mgt_translate_composite',),
+        PARENT_COMPOSITE_SIGNATURE, 'composite_parent')
 
-    def call(lib, p=plan, x=layers, t=shifts):
+    def call(lib, rows=plan.rows, x=layers, t=shifts):
         checked(lib.mgt_translate_composite(
             x.data_ptr(), t.data_ptr(), out.data_ptr(), *x.shape[:4], 0.0,
-            comp.VARIANT_CODES[p.variant], p.rows, p.tile_w, p.stages,
-            stream), 'composite')
+            comp.VARIANT_CODES['tiled'], rows, stream), 'composite')
+
+    def call_parent(lib, x=layers, t=shifts):
+        checked(lib.mgt_translate_composite(
+            x.data_ptr(), t.data_ptr(), out.data_ptr(), *x.shape[:4], 0.0,
+            stream), 'parent composite')
 
     print(f"[composite phases] K5' [{b},{l},{h},{w},4], shifts within "
           f'+-0.1; plan {plan.variant} {plan.rows}x{plan.tile_w}, '
-          f'{plan.stages} stages, {plan.smem_bytes} B shared; device ms, '
+          f'{comp.STAGES} stages, {plan.smem_bytes} B shared; device ms, '
           f'L2 cold  card: {card}', flush=True)
-    full = None
-    for name in COMPOSITE_VARIANTS:
-        ms = device_ms(lambda: call(libs[name]))
-        if name == 'full':
-            full = ms
-            report("K5' full", ms)
-        else:
-            report(name, ms, full)
-    for rows, tile_w, stages in COMPOSITE_PLANS:
-        p = comp.composite_plan(b, h, w, True, rows, tile_w, stages)
-        ms = device_ms(lambda: call(libs['full'], p))
-        report(f"K5' {p.variant} {rows}x{p.tile_w}, {stages} stages "
-               f'({p.smem_bytes} B shared)', ms, full)
-    chosen = comp.composite_plan(3, 67, 45)
-    for p in (chosen, *(comp.composite_plan(3, 67, 45, True, *rts)
-                        for rts in SMALL_PLANS)):
-        ms = device_ms(lambda: call(libs['full'], p, small, small_shifts))
-        report(f"K5' [3,5,67,45,4] {p.variant} {p.rows}x{p.tile_w}, "
-               f"{p.stages} stages{' (the plan)' if p is chosen else ''}", ms)
-    if parent is None:
-        return
-    old = build_variants(parent / 'montage_gan_tpu_torch' / 'csrc',
-                         'composite', PARENT_COMPOSITE_VARIANTS,
-                         ('mgt_translate_composite',),
-                         PARENT_COMPOSITE_SIGNATURE, 'composite_parent')
-    full = None
-    for name, lib in old.items():
-        ms = device_ms(lambda: checked(lib.mgt_translate_composite(
-            layers.data_ptr(), shifts.data_ptr(), out.data_ptr(), b, l, h, w,
-            0.0, stream), 'parent composite'))
-        if name == 'full':
-            full = ms
-            report(f"{parent.name} K5' full", ms)
-        else:
-            report(name, ms, full)
+    full = device_ms(lambda: call(libs['full']))
+    report("K5' full", full)
+    for name in [*COMPOSITE_VARIANTS][1:]:
+        report(name, device_ms(lambda: call(libs[name])), full)
+    report("K5' 4x256, 2 stages", device_ms(lambda: call(libs['full'], 4)),
+           full)
+    for name in COMPOSITE_TILES:
+        report(name, device_ms(lambda: call(libs[name], 8)), full)
+    if old is not None:
+        pfull = device_ms(lambda: call_parent(old['full']))
+        report(f"{parent.name} K5' full", pfull)
+        for name in [*PARENT_COMPOSITE_VARIANTS][1:]:
+            report(name, device_ms(lambda: call_parent(old[name])), pfull)
+
+    print(f"[composite small launches] 8-row against 4-row tiles in turns "
+          f'(8, 4, 4, 8; the parent first and last); the plan takes 4 rows '
+          f'below {sms} tiles of 8 rows; device ms, L2 cold  card: {card}',
+          flush=True)
+    cases = [((n, 9, 256, 256), layers[:n], shifts[:n]) for n in (1, 2, 3, 4)]
+    cases.append(((3, 5, 67, 45), small, small_shifts))
+    for shape, x, t in cases:
+        order = ([] if old is None else ['parent']) + [8, 4, 4, 8] + (
+            [] if old is None else ['parent'])
+        ms = {}
+        for k in order:
+            fn = ((lambda: call_parent(old['full'], x, t)) if k == 'parent'
+                  else (lambda: call(libs['full'], k, x, t)))
+            ms.setdefault(k, []).append(device_ms(fn))
+        chosen = comp.composite_plan(*shape[:1], *shape[2:], sms).rows
+        line = '  '.join(f"{k}{' rows' if k != 'parent' else ''} "
+                         + ' '.join(f'{v:.4f}' for v in vs)
+                         for k, vs in ms.items())
+        print(f"  K5' [{','.join(map(str, shape))},4] (the plan: {chosen} "
+              f'rows): {line}', flush=True)
 
 
 def main(argv=None):

@@ -22,7 +22,8 @@ from montage_gan_tpu.ops.pallas.composite_kernel import \
 from montage_gan_tpu_torch.ops import composite as tcomp
 
 import chip_smoke
-from test_torch_grads import emulate_kernels, emulated_composite
+from test_torch_composite_plans import emulated_composite
+from test_torch_grads import emulate_kernels
 
 torch.set_num_threads(1)
 

@@ -14,9 +14,11 @@ one layer:
     and fits the stage: at most R + 2 rows and min(tile_w + 2, W) columns;
 (c) the output rebuilt tile by tile from the staged windows alone, by the
     kernel's two paths (the regular one and the per-row one), equals the
-    emulated kernel (``test_torch_grads.emulated_composite``) bit for bit.
+    emulated kernel (``emulated_composite``, also used by
+    ``test_torch_grads`` and ``test_torch_composite``) bit for bit.
 
-Torch and numpy only, no JAX.
+Both tile heights run: 8 rows, and 4 on a launch of fewer 8-row tiles than
+the card's SMs (an H100's 132 here).  Torch and numpy only, no JAX.
 """
 
 import numpy as np
@@ -24,14 +26,43 @@ import pytest
 import torch
 
 from montage_gan_tpu_torch.ops import composite as tcomp
-from montage_gan_tpu_torch.ops.grid_sample import affine_grid, translate_to_theta
-
-from test_torch_grads import emulated_composite
+from montage_gan_tpu_torch.ops.grid_sample import (affine_grid,
+                                                   translate_sample,
+                                                   translate_to_theta)
 
 F32 = np.float32
-PLANS = {'default': {}, '4x64, 3 stages': dict(rows=4, tile_w=64, stages=3),
-         '16x32, 4 stages': dict(rows=16, tile_w=32, stages=4)}
-EXTENTS = (1, 5, 19, 45, 67, 256, 1000)
+H100_SMS = 132
+# the tile heights, by the SMs that make a one-sample launch take them
+ROWS = {'8 rows': 1, '4 rows': 10 ** 6}
+EXTENTS = (1, 2, 5, 19, 45, 67, 256, 257, 513, 1000)
+
+
+def emulated_composite(layers, translations, pad_value=0.0):
+    """What K5' computes: the plain version's taps and lerp weights, then
+    the A-over-B recurrence in layer order on a premultiplied canvas (P <-
+    c·la + P·(1 - la), A <- la + A·(1 - la)), each step rounded, divided
+    once at the end with 0/0 -> 0; counted under the variant the wrapper's
+    plan picks on an H100."""
+    b, l, h, w, c = layers.shape
+    plan = tcomp.composite_plan(b, h, w, H100_SMS,
+                                layers.data_ptr() % 16 == 0)
+    tcomp.kernel.count(plan.variant, sum(
+        t.numel() * t.element_size() for t in (layers, translations))
+        + b * h * w * c * layers.element_size())
+    moved = translate_sample(
+        layers.reshape(b * l, h, w, c),
+        translations.clamp(-1, 1).reshape(b * l, 2),
+        pad_value=pad_value).reshape(b, l, h, w, c)
+    canvas = torch.zeros(b, h, w, c, dtype=layers.dtype)
+    for i in range(l):
+        la = moved[:, i, ..., 3:]
+        keep = 1.0 - la
+        canvas = torch.cat([moved[:, i, ..., :3] * la + canvas[..., :3] * keep,
+                            la + canvas[..., 3:] * keep], -1)
+    alpha = canvas[..., 3:]
+    color = canvas[..., :3] / torch.where(alpha == 0, torch.ones_like(alpha),
+                                          alpha)
+    return torch.cat([torch.where(alpha == 0, 0.0, color), alpha], -1)
 
 
 def _shifts(n, seed=0):
@@ -65,31 +96,29 @@ def _plain_taps(n, shifts, axis):
 
 
 def test_plan_variants_and_shared_memory():
-    main = tcomp.composite_plan(8, 256, 256)
-    assert (main.variant, main.rows, main.tile_w, main.stages) == \
-        ('tiled', 8, 256, 2)
+    main = tcomp.composite_plan(8, 256, 256, H100_SMS)
+    assert (main.variant, main.rows, main.tile_w) == ('tiled', 8, 256)
     assert main.grid == (1, 32, 8) and main.threads == 256
-    assert main.smem_bytes == 2 * tcomp.stage_bytes(8, 256, True) <= \
-        tcomp.MAX_SMEM
+    # two stages in an H100 block's 227 KB, two blocks to an SM
+    assert main.smem_bytes == 2 * tcomp.stage_bytes(8, 256, True) == 86848
     assert tcomp.capacity(8, 256) == 10 * 258
-    q = tcomp.composite_plan(2, 64, 1000, rows=8)
+    q = tcomp.composite_plan(2, 64, 1000, 1)
     assert q.grid == (4, 8, 2) and q.tile_box(7, 3) == (56, 64, 768, 1000)
     # fewer 8-row tiles than SMs: 4-row tiles
-    for b, h, w in ((2, 64, 1000), (3, 67, 45), (1, 8, 8), (16, 64, 64)):
-        p = tcomp.composite_plan(b, h, w)
-        assert (p.variant, p.rows, p.stages) == ('tiled', 4, 2)
-    assert tcomp.composite_plan(17, 64, 64).rows == 8
-    # off 16-byte alignment, or a ring too large for shared memory: direct
-    d = tcomp.composite_plan(3, 67, 45, aligned=False)
+    for b, h, w in ((2, 64, 1000), (3, 67, 45), (1, 8, 8), (16, 64, 64),
+                    (4, 256, 256)):
+        p = tcomp.composite_plan(b, h, w, H100_SMS)
+        assert (p.variant, p.rows) == ('tiled', 4)
+        assert p.smem_bytes == 2 * tcomp.stage_bytes(4, min(w, 256), True)
+    assert tcomp.composite_plan(17, 64, 64, H100_SMS).rows == 8
+    assert tcomp.composite_plan(5, 256, 256, H100_SMS).rows == 8
+    assert tcomp.composite_plan(5, 256, 256, 161).rows == 4
+    # off 16-byte alignment: direct, the ring holding the tables only
+    d = tcomp.composite_plan(3, 67, 45, H100_SMS, aligned=False)
     assert d.variant == 'direct' and d.tile_w == 45 and d.threads == 64
     assert d.smem_bytes == 2 * tcomp.stage_bytes(4, 45, False)
-    big = tcomp.composite_plan(1, 64, 256, rows=16, stages=4)
-    assert big.variant == 'direct'
-    assert 4 * tcomp.stage_bytes(16, 256, True) > tcomp.MAX_SMEM
-    for bad in (dict(rows=5), dict(tile_w=257), dict(stages=1),
-                dict(stages=5)):
-        with pytest.raises(ValueError):
-            tcomp.composite_plan(1, 8, 8, **bad)
+    with pytest.raises(ValueError):
+        tcomp.composite_plan(70000, 8, 8, H100_SMS)
     # the kernel clamps with fminf(fmaxf(t, -1), 1): NaN gives -1
     np.testing.assert_array_equal(
         tcomp.clamp_shift([np.nan, 2.5, -7.0, 0.25]),
@@ -121,12 +150,10 @@ def _axis_windows(n, tile, shift):
     return out
 
 
-@pytest.mark.parametrize('plan', list(PLANS))
+@pytest.mark.parametrize('rows', [tcomp.ROWS, tcomp.SMALL_ROWS])
 @pytest.mark.parametrize('n', EXTENTS)
-def test_windows_hold_every_tap_and_fit_the_stage(n, plan):
-    kw = PLANS[plan]
-    rows = kw.get('rows', tcomp.ROWS)
-    tile_w = min(kw.get('tile_w', tcomp.TILE_W), n)
+def test_windows_hold_every_tap_and_fit_the_stage(n, rows):
+    tile_w = min(tcomp.TILE_W, n)
     worst = 0
     for shift in tcomp.clamp_shift(_shifts(n, seed=1)):
         for axis, tile, limit in (('rows', rows, rows + 2),
@@ -144,10 +171,10 @@ def test_windows_hold_every_tap_and_fit_the_stage(n, plan):
     assert worst <= 2
 
 
-@pytest.mark.parametrize('plan', list(PLANS))
+@pytest.mark.parametrize('plan', list(ROWS))
 def test_tile_window_is_the_twin_of_the_axis_windows(plan):
     h, w = 67, 300
-    p = tcomp.composite_plan(1, h, w, **PLANS[plan])
+    p = tcomp.composite_plan(1, h, w, ROWS[plan])
     rng = np.random.RandomState(3)
     shifts = list(zip(_shifts(w, seed=5)[::9], _shifts(h, seed=6)[::9]))
     shifts += [(rng.uniform(-1.2, 1.2), rng.uniform(-1.2, 1.2))
@@ -164,7 +191,7 @@ def test_tile_window_is_the_twin_of_the_axis_windows(plan):
             else:
                 assert (win.y0, win.rows, win.x0, win.cols) == (r0, nr, c0,
                                                                nc)
-                assert win.staged
+            assert win.fits
             assert win.base == rt[0]
             assert win.regular == bool(
                 (rt == rt[0] + np.arange(rt.size)).all())
@@ -191,7 +218,7 @@ def _tiled_rebuild(layers, shifts, pad, plan):
             for li in range(l):
                 sx, sy = ys[bi, li]
                 win = tcomp.tile_window(plan, (sx, sy), ty, tx)
-                assert win.staged
+                assert win.fits
                 stage = torch.full((h + 4, w + 4, 4), float('nan'))
                 stage[win.y0 + 2:win.y0 + 2 + win.rows,
                       win.x0 + 2:win.x0 + 2 + win.cols] = layers[
@@ -247,7 +274,7 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize('plan', ['default', '4x64, 3 stages'])
+@pytest.mark.parametrize('plan', list(ROWS))
 @pytest.mark.parametrize('case', list(CASES))
 def test_rebuild_from_windows_matches_the_emulated_kernel(case, plan):
     (b, l, h, w), kind, pad = CASES[case]
@@ -267,11 +294,11 @@ def test_rebuild_from_windows_matches_the_emulated_kernel(case, plan):
     else:
         shifts = rng.uniform(-1.2, 1.2, (b, l, 2)).astype(F32)
     lt, st = torch.from_numpy(layers), torch.from_numpy(shifts)
-    plan_ = tcomp.composite_plan(b, h, w, **PLANS[plan])
+    plan_ = tcomp.composite_plan(b, h, w, ROWS[plan])
     got = _tiled_rebuild(lt, st, pad, plan_)
     ref = emulated_composite(lt, st, pad)
     assert torch.equal(got, ref)
-    if kind == 'near' and plan == 'default':    # both paths ran
+    if kind == 'near' and plan == '8 rows':     # both paths ran
         regular = {tcomp.tile_window(plan_, s, ty, tx).regular
                    for s in tcomp.clamp_shift(shifts.reshape(-1, 2))
                    for ty, tx in plan_.tiles()}

@@ -44,6 +44,8 @@ from montage_gan_tpu_torch.ops import grid_sample as tgs
 from montage_gan_tpu_torch.ops import modulated_conv as tmod
 from montage_gan_tpu_torch.ops import upfirdn2d as tup
 
+from test_torch_composite_plans import emulated_composite
+
 torch.set_num_threads(1)
 
 F2D = [1, 3, 3, 1]
@@ -300,33 +302,6 @@ def _emulated_warp_transpose(g, theta, h, w, up, taps, direct_blocks=None):
         dx, = torch.autograd.grad(y, x0, g)
     _count_warp(taw.transpose_kernel, 'transpose', dx, g, theta, taps, up)
     return dx
-
-
-def emulated_composite(layers, translations, pad_value=0.0):
-    """What K5' computes: the plain version's taps and lerp weights, then
-    the A-over-B recurrence in layer order on a premultiplied canvas (P <-
-    c·la + P·(1 - la), A <- la + A·(1 - la)), each step rounded, divided
-    once at the end with 0/0 -> 0; counted under the variant the wrapper's
-    plan picks."""
-    b, l, h, w, c = layers.shape
-    plan = tcomp.composite_plan(b, h, w, layers.data_ptr() % 16 == 0)
-    tcomp.kernel.count(plan.variant, sum(
-        t.numel() * t.element_size() for t in (layers, translations))
-        + b * h * w * c * layers.element_size())
-    moved = tgs.translate_sample(
-        layers.reshape(b * l, h, w, c),
-        translations.clamp(-1, 1).reshape(b * l, 2),
-        pad_value=pad_value).reshape(b, l, h, w, c)
-    canvas = torch.zeros(b, h, w, c, dtype=layers.dtype)
-    for i in range(l):
-        la = moved[:, i, ..., 3:]
-        keep = 1.0 - la
-        canvas = torch.cat([moved[:, i, ..., :3] * la + canvas[..., :3] * keep,
-                            la + canvas[..., 3:] * keep], -1)
-    alpha = canvas[..., 3:]
-    color = canvas[..., :3] / torch.where(alpha == 0, torch.ones_like(alpha),
-                                          alpha)
-    return torch.cat([torch.where(alpha == 0, 0.0, color), alpha], -1)
 
 
 def emulate_kernels(monkeypatch):
