@@ -32,8 +32,9 @@ from montage_gan_tpu_torch.ops.grid_sample import (affine_grid,
 
 F32 = np.float32
 H100_SMS = 132
-# the tile heights, by the SMs that make a one-sample launch take them
-ROWS = {'8 rows': 1, '4 rows': 10 ** 6}
+# the tile heights: the plan's default (8 rows) and 4 rows, by the SMs
+# that make a launch take them
+PLANS = {'default': 1, '4 rows': 10 ** 6}
 EXTENTS = (1, 2, 5, 19, 45, 67, 256, 257, 513, 1000)
 
 
@@ -150,9 +151,10 @@ def _axis_windows(n, tile, shift):
     return out
 
 
-@pytest.mark.parametrize('rows', [tcomp.ROWS, tcomp.SMALL_ROWS])
+@pytest.mark.parametrize('plan', list(PLANS))
 @pytest.mark.parametrize('n', EXTENTS)
-def test_windows_hold_every_tap_and_fit_the_stage(n, rows):
+def test_windows_hold_every_tap_and_fit_the_stage(n, plan):
+    rows = tcomp.composite_plan(1, n, n, PLANS[plan]).rows
     tile_w = min(tcomp.TILE_W, n)
     worst = 0
     for shift in tcomp.clamp_shift(_shifts(n, seed=1)):
@@ -171,10 +173,10 @@ def test_windows_hold_every_tap_and_fit_the_stage(n, rows):
     assert worst <= 2
 
 
-@pytest.mark.parametrize('plan', list(ROWS))
+@pytest.mark.parametrize('plan', list(PLANS))
 def test_tile_window_is_the_twin_of_the_axis_windows(plan):
     h, w = 67, 300
-    p = tcomp.composite_plan(1, h, w, ROWS[plan])
+    p = tcomp.composite_plan(1, h, w, PLANS[plan])
     rng = np.random.RandomState(3)
     shifts = list(zip(_shifts(w, seed=5)[::9], _shifts(h, seed=6)[::9]))
     shifts += [(rng.uniform(-1.2, 1.2), rng.uniform(-1.2, 1.2))
@@ -274,7 +276,7 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize('plan', list(ROWS))
+@pytest.mark.parametrize('plan', list(PLANS))
 @pytest.mark.parametrize('case', list(CASES))
 def test_rebuild_from_windows_matches_the_emulated_kernel(case, plan):
     (b, l, h, w), kind, pad = CASES[case]
@@ -294,11 +296,11 @@ def test_rebuild_from_windows_matches_the_emulated_kernel(case, plan):
     else:
         shifts = rng.uniform(-1.2, 1.2, (b, l, 2)).astype(F32)
     lt, st = torch.from_numpy(layers), torch.from_numpy(shifts)
-    plan_ = tcomp.composite_plan(b, h, w, ROWS[plan])
+    plan_ = tcomp.composite_plan(b, h, w, PLANS[plan])
     got = _tiled_rebuild(lt, st, pad, plan_)
     ref = emulated_composite(lt, st, pad)
     assert torch.equal(got, ref)
-    if kind == 'near' and plan == '8 rows':     # both paths ran
+    if kind == 'near' and plan == 'default':    # both paths ran
         regular = {tcomp.tile_window(plan_, s, ty, tx).regular
                    for s in tcomp.clamp_shift(shifts.reshape(-1, 2))
                    for ty, tx in plan_.tiles()}
