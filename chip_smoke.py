@@ -55,14 +55,28 @@ Phases, in order; each raises on failure, and the script then exits non-zero:
 12. aio cross-device: the global Gmain, Dmain and R1 losses and the renderer
    loss with their gradients on a micro ensemble with a tanh renderer and a
    global D, CPU (plain) against the card (kernels).
+13. loop: the training CLI and loop at the reference's batch 32, config
+   ``aio``, in a temporary directory outside the repository (deleted at the
+   end): a synthetic dataset of 64 samples (9 layers, 256 px) written by
+   the port's PNG writer; the prefetcher alone (samples/s, at least 5x the
+   loop's images/s); ``cli/train_aio.main`` for one step with ``--batch-gpu
+   16`` (its files, finite stats, and the exact launches of K1'-K4' in the
+   accumulated step and its EMA grid); ``training_loop`` for 6 steps with
+   and without ``--batch-gpu`` (images/s of steps 2-6, the data wait, peak
+   memory; without it "does not fit" is reported, not raised); the CLI
+   again with ``--resume`` (the restored state checked bit for bit against
+   the snapshot file); ``cli/generate`` for 8 seeds from the EMA snapshot;
+   every snapshot's bytes and save and restore seconds.
 
-Each main path (6, 8, 10 and 11) is driven with every launch count set to
-0 just before it and read just after.  The last two lines are the card's name and
+Each main path (6, 8, 10, 11 and 13's CLI step and 6-step loops) is driven
+with every launch count set to 0 just before it and read just after.  The last two lines are the card's name and
 power limit (from ``nvidia-smi``) and one JSON object, ``{"ok": true,
-"device": {...}}``; the line before them is ``{"kernels": [...]}``.
+"device": {...}}``; the line before them is ``{"kernels": [...]}``, and
+before it the loop's figures (``{"loop": ...}``) and the total seconds.
 """
 
 import copy
+import gc
 import json
 import math
 import os
@@ -73,6 +87,7 @@ import time
 from montage_gan_tpu_torch.tools.timing import (PEAK_BYTES, card_line, device_ms,
                                                 host_us)
 
+START = time.perf_counter()
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH = 8
 SEED = 0
@@ -662,7 +677,8 @@ def expected_train_launches(model, hyper, steps):
       Greg M + G; Dmain M + G + 2 D (fakes and reals apart); Dr1 D.
     * K1' grad: one per backward of a bias_act whose activation is not the
       identity (the affines and D's last FC are linear with gain 1, no
-      clamp: their backward is the identity).  Gmain: D (nD - 1), G (S + T),
+      clamp: their backward is the identity; so are the ToRGBs' without
+      ``conv_clamp``, and T counts 0 in K1' grad).  Gmain: D (nD - 1), G (S + T),
       M.  Greg: inner grad S + T; outer: each synthesis layer's order-1 node
       (S) and forward node (S: the style gradient reads its output), and M.
       The ToRGBs' inner nodes see the constant path-length noise and record
@@ -682,7 +698,12 @@ def expected_train_launches(model, hyper, steps):
     the backward of both (no renderer, STN or composite op launches a
     kernel); global Dmain a global forward without gradients and the D on
     fakes and reals, augmented together at 2B; global R1 the D's Dr1.  The
-    global pipe's warp runs as in the local phases."""
+    global pipe's warp runs as in the local phases.
+
+    With microbatch accumulation every round runs its phase's forward and
+    backward over its slice of the batch: the local phases' launches are
+    multiplied by ``hyper.accum_rounds``, the renderer's and the global
+    phases' by ``hyper.global_accum_rounds``."""
     from montage_gan_tpu_torch.models.layers import (Conv2dLayer,
                                                      FullyConnected)
     from montage_gan_tpu_torch.models.synthesis import (SynthesisLayer,
@@ -701,14 +722,16 @@ def expected_train_launches(model, hyper, steps):
     warp = has_warp(hyper.augment if not hyper.local_noaug else None)
     gwarp = has_warp(hyper.augment if not hyper.global_noaug else None)
     m = model.mapping.num_layers * (2 if hyper.style_mixing_prob > 0 else 1)
+    clamped = int(model.cfg.conv_clamp is not None)
     g_fwd = g_grad = g_up = 0        # one global forward: all local Gs
     for g in model.local_g:
         s, t = count(g, SynthesisLayer), count(g, ToRGBLayer)
         g_fwd += m + s + t + count(g, FullyConnected)
-        g_grad += m + s + t
+        g_grad += m + s + t * clamped
         g_up += len(g.block_resolutions) - 1
     use_r = not hyper.bypass_renderer and model.renderer is not None
-    renderer = int(hyper.train_renderer and use_r)
+    rounds, grounds = hyper.accum_rounds, hyper.global_accum_rounds
+    renderer = int(hyper.train_renderer and use_r) * grounds
     glob = int(hyper.train_global and model.stn is not None)
     out = dict.fromkeys(('bias_act', 'bias_act_grad', 'upfirdn2d',
                          'warp_forward', 'warp_transpose'), 0)
@@ -722,27 +745,28 @@ def expected_train_launches(model, hyper, steps):
                 break
             s, t = count(g, SynthesisLayer), count(g, ToRGBLayer)
             n_g = s + t + count(g, FullyConnected)
+            t_grad = t * clamped
             blocks = len(g.block_resolutions)
             n_d, lb = d_counts(d)
-            out['bias_act'] += ((m + n_g + n_d) + greg * (m + n_g)
-                                + (m + n_g + 2 * n_d) + dr1 * n_d)
-            out['bias_act_grad'] += ((n_d - 1 + s + t + m)
-                                     + greg * (3 * s + t + m)
-                                     + 2 * (n_d - 1)
-                                     + dr1 * (2 * (n_d - 1) + lb))
-            out['upfirdn2d'] += (blocks - 1) * (2 + 2 * greg + 1)
-            out['warp_forward'] += warp * (2 + 2 * dr1)
-            out['warp_transpose'] += warp * (1 + dr1)
+            out['bias_act'] += rounds * ((m + n_g + n_d) + greg * (m + n_g)
+                                         + (m + n_g + 2 * n_d) + dr1 * n_d)
+            out['bias_act_grad'] += rounds * ((n_d - 1 + s + t_grad + m)
+                                              + greg * (3 * s + t_grad + m)
+                                              + 2 * (n_d - 1)
+                                              + dr1 * (2 * (n_d - 1) + lb))
+            out['upfirdn2d'] += rounds * (blocks - 1) * (2 + 2 * greg + 1)
+            out['warp_forward'] += rounds * warp * (2 + 2 * dr1)
+            out['warp_transpose'] += rounds * warp * (1 + dr1)
         out['bias_act'] += renderer * g_fwd
         out['upfirdn2d'] += renderer * g_up
         if not glob:
             continue
         goi = hyper.global_optimize_interval
         n_d, lb = d_counts(model.global_d)
-        main = int(step % goi == 0)
+        main = int(step % goi == 0) * grounds
         gr1 = int(hyper.d_reg_interval is not None
                   and hyper.global_r1_gamma != 0
-                  and step % (hyper.d_reg_interval * goi) == 0)
+                  and step % (hyper.d_reg_interval * goi) == 0) * grounds
         out['bias_act'] += (main * ((g_fwd + n_d) + (g_fwd + 2 * n_d))
                             + gr1 * n_d)
         out['bias_act_grad'] += (main * ((n_d - 1 + g_grad) + 2 * (n_d - 1))
@@ -1380,6 +1404,305 @@ def phase_aio_cross_device(device='cuda'):
         check_phase(phase, run, cpu, card, nudged, device)
 
 
+LOOP_BATCH = 32
+LOOP_BATCH_GPU = 16
+LOOP_STEPS = 6
+LOOP_SAMPLES = 64
+
+
+def read_stats(run_dir):
+    """The records of a run's ``stats.jsonl``."""
+    with open(os.path.join(run_dir, 'stats.jsonl')) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_run_dir(run_dir):
+    """Raises unless a CLI run left its options, log, finite stats, grids and
+    both snapshots."""
+    files = set(os.listdir(run_dir))
+    need = {'training_options.json', 'log.txt', 'stats.jsonl', 'reals.png',
+            'fakes000000.png', 'fakes-layer000000.png',
+            'network-snapshot-000000.pt', 'ema-snapshot-000000.pt'}
+    if need - files:
+        raise AssertionError(f'{run_dir}: missing {sorted(need - files)}')
+    records = read_stats(run_dir)
+    bad = [k for r in records for k, v in r.items()
+           if isinstance(v, dict) and not math.isfinite(v['mean'])]
+    if bad or not any(k.endswith('Loss/G/loss') for k in records[0]):
+        raise AssertionError(f'{run_dir}: stats.jsonl non-finite {bad}')
+    return records
+
+
+class Recorder:
+    """Wraps module functions for the loop phase: times every snapshot save
+    and restore (path, bytes, seconds), and can run a check on a call's
+    result."""
+
+    def __init__(self):
+        self.snapshots = []
+        self._undo = []
+
+    def wrap(self, module, name, path_of, after=None):
+        fn = getattr(module, name)
+
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sec = time.perf_counter() - t0
+            path = path_of(out, *args)
+            self.snapshots.append((name, path, os.path.getsize(path), sec))
+            if after is not None:
+                after(out, *args, **kwargs)
+            return out
+        setattr(module, name, wrapped)
+        self._undo.append((module, name, fn))
+
+    def undo(self):
+        for module, name, fn in reversed(self._undo):
+            setattr(module, name, fn)
+        self._undo = []
+
+
+def check_restored(state, path, trainer):
+    """Raises unless a restored train state equals the snapshot file bit for
+    bit: weights and buffers, the EMA, every optimizer's moments, the ADA
+    controller and the step."""
+    import torch
+    saved = torch.load(path, map_location='cpu', weights_only=True,
+                       mmap=True)
+
+    def same(a, b, what):
+        if not torch.equal(a.detach().cpu(), b):
+            raise AssertionError(f'restored {what} differs from {path}')
+    for k, v in state.model.state_dict().items():
+        same(v, saved['model'][k], k)
+    for k, v in state.ema.state_dict().items():
+        same(v, saved['ema'][k], f'ema {k}')
+    opts = (state.opt_local_g + state.opt_local_d
+            + [state.opt_global_g, state.opt_global_d, state.opt_renderer])
+    saved_opts = (saved['opt_local_g'] + saved['opt_local_d']
+                  + [saved['opt_global_g'], saved['opt_global_d'],
+                     saved['opt_renderer']])
+    moments = 0
+    for i, (opt, sd) in enumerate(zip(opts, saved_opts)):
+        for p_id, st in opt.state_dict()['state'].items():
+            for k, v in st.items():
+                if torch.is_tensor(v):
+                    same(v, sd['state'][p_id][k], f'optimizer {i} {k}')
+                    moments += v.numel()
+    for k in ('aug_p', 'pl_mean', 'ada_sign_sum', 'ada_sign_count'):
+        same(getattr(state, k), saved[k], k)
+    if state.step != saved['step'] or state.step < 1:
+        raise AssertionError(f'restored step {state.step}, saved '
+                             f'{saved["step"]}')
+    log(f'  ok  restored state = saved: {len(state.model.state_dict())} '
+        f'tensors, EMA, {len(opts)} optimizers ({moments} moment and step '
+        f'entries), aug_p {[round(v, 6) for v in state.aug_p.tolist()]}, '
+        f'step {state.step}')
+
+
+def phase_loop(card, kernels, device='cuda', size=256, samples=LOOP_SAMPLES,
+               batch=LOOP_BATCH, batch_gpu=LOOP_BATCH_GPU, steps=LOOP_STEPS,
+               cli_args=(), workdir=None):
+    """The training CLI and loop at the reference's batch 32 on a synthetic
+    dataset written in a temporary directory outside the repository (the
+    snapshots are several GB): the reader alone; ``cli/train_aio.main`` for
+    one step with ``--batch-gpu`` (files, exact launch counts of the
+    accumulated step and the EMA grid); ``training_loop`` for ``steps``
+    steps with and without ``--batch-gpu`` (images/s of steps 2 on, data
+    wait, peak memory; without accumulation "does not fit" is reported,
+    not raised); the CLI again from the first run's snapshot (the restored
+    state checked against the file); ``cli/generate`` from its EMA
+    snapshot."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from montage_gan_tpu_torch.cli import generate, train_aio
+    from montage_gan_tpu_torch.data.dataset import DatasetAIO
+    from montage_gan_tpu_torch.data.synthetic import \
+        make_synthetic_layer_dataset
+    from montage_gan_tpu_torch.training import loop_aio
+    from montage_gan_tpu_torch.utils import checkpoint
+    from montage_gan_tpu_torch.utils.png import read_png_rgba
+
+    on_card = torch.device(device).type == 'cuda'
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    tmp = tempfile.mkdtemp(prefix='mgt-loop-', dir=workdir)
+    rec = Recorder()
+    out = {}
+    try:
+        data = os.path.join(tmp, 'layers')
+        t0 = time.perf_counter()
+        make_synthetic_layer_dataset(data, num_samples=samples, size=size)
+        dataset = DatasetAIO(data, conv_config_index=3)
+        free = shutil.disk_usage(tmp).free
+        log(f'[loop] dataset of {samples} samples x {dataset.num_layers} '
+            f'layers {size}x{size} written and its stats computed in '
+            f'{time.perf_counter() - t0:.1f} s; {free / 2**30:.1f} GiB free '
+            f'in {tmp}')
+
+        # 1. the reader alone: batches of `batch` in turn after the first
+        pf = loop_aio.BatchPrefetcher(dataset, batch, dataset.layer_targets,
+                                      depth=1, pin_memory=on_card)
+        try:
+            pf.next()
+            n = 8
+            t0 = time.perf_counter()
+            for _ in range(n):
+                pf.next()
+            reader = n * batch / (time.perf_counter() - t0)
+        finally:
+            pf.stop()
+        out['reader_samples_per_s'] = reader
+        log(f'  reader: {reader:.1f} samples/s at batch {batch} (PNG decode '
+            f'on {loop_aio.DECODE_THREADS} threads, crops, pinned uint8)')
+
+        base = ['--data', data, '--cfg', 'aio', '--batch', str(batch),
+                '--aug', 'ada', '--augpipe', 'bgcfnc', '--run-once',
+                '--device', device, *cli_args]
+        rec.wrap(checkpoint, 'save_train_state', lambda out, *a: out)
+        rec.wrap(checkpoint, 'save_ema_snapshot', lambda out, *a: a[0])
+        captured = {}
+        cli_loop = train_aio.training_loop
+
+        def capture(**kw):
+            captured.update(kw, state=cli_loop(**kw))
+            return captured['state']
+        train_aio.training_loop = capture
+
+        # 2. the CLI, one step with accumulation
+        for k in kernels.values():
+            k.reset()
+        t0 = time.perf_counter()
+        try:
+            train_aio.main(['--outdir', os.path.join(tmp, 'runs'), *base,
+                            '--batch-gpu', str(batch_gpu)])
+        finally:
+            train_aio.training_loop = cli_loop
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        run_dir, hyper, cfg = (captured[k] for k in ('run_dir', 'hyper',
+                                                     'cfg'))
+        expect = expected_train_launches(captured['state'].model, hyper, 1)
+        # the EMA grid of the tick: one sampling call of 32
+        for name, n in expected_launches(captured['state'].ema).items():
+            expect[name] += n
+        captured.clear()
+        log(f'[loop] cli/train_aio --batch {batch} --batch-gpu {batch_gpu} '
+            f'--run-once: {wall:.1f} s ({hyper.accum_rounds} local and '
+            f'{hyper.global_accum_rounds} global rounds)')
+        log(f'  launches {launches}, expected {expect} (step 0 and the EMA '
+            f'grid of {min(32, batch)})')
+        for name, n in launches.items():
+            if n == 0 or n != expect[name]:
+                raise AssertionError(f'{name}: {n} launches in the CLI run, '
+                                     f'expected {expect[name]}')
+        records = check_run_dir(run_dir)
+        log(f'  ok  {run_dir}: options, log, {len(records)} stats record(s) '
+            f'({len(records[0])} names, finite), grids, snapshots')
+        snapshot = os.path.join(run_dir, 'network-snapshot-000000.pt')
+        ema_snapshot = os.path.join(run_dir, 'ema-snapshot-000000.pt')
+
+        # 3. training_loop alone, `steps` steps in 2-step ticks
+        def loop(microbatch, name):
+            h = dataclasses.replace(hyper, microbatch=microbatch)
+            d = os.path.join(tmp, name)
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            for k in kernels.values():
+                k.reset()
+            try:
+                st = loop_aio.training_loop(
+                    d, dataset, cfg=cfg, hyper=h,
+                    total_kimg=steps * batch / 1000,
+                    kimg_per_tick=2 * batch / 1000,
+                    image_snapshot_ticks=None, network_snapshot_ticks=None,
+                    device=device)
+            except torch.cuda.OutOfMemoryError as e:
+                peak = torch.cuda.max_memory_allocated() if on_card else 0
+                log(f'  batch {batch} without --batch-gpu does not fit: '
+                    f'{str(e).splitlines()[0][:160]}; peak '
+                    f'{peak / 2**30:.2f} GiB  card: {card}')
+                return None
+            peak = torch.cuda.max_memory_allocated() if on_card else 0
+            got = {k: v.launches for k, v in kernels.items()}
+            want = expected_train_launches(st.model, h, steps)
+            if got != want:
+                raise AssertionError(f'{name}: launches {got}, expected '
+                                     f'{want}')
+            del st
+            recs = read_stats(d)
+            secs = sum(r['Timing/sec_per_tick']['mean'] for r in recs[1:])
+            fetch = (sum(r['Timing/data_fetch']['mean']
+                         * r['Timing/data_fetch']['num'] for r in recs)
+                     / sum(r['Timing/data_fetch']['num'] for r in recs))
+            ips = (steps - 1) * batch / secs
+            log(f'  {name}: {steps} steps, ticks of '
+                f'{[r["Timing/data_fetch"]["num"] for r in recs]} steps; steps '
+                f'2-{steps}: {ips:.2f} images/s; data wait '
+                f'{fetch * 1e3:.1f} ms a step; peak memory '
+                f'{peak / 2**30:.2f} GiB; launches as expected  card: {card}')
+            return dict(images_per_s=ips, data_fetch_s=fetch,
+                        peak_gib=peak / 2**30)
+
+        log(f'[loop] training_loop, batch {batch}, {steps} steps in 2-step '
+            'ticks')
+        out['accumulated'] = loop(batch_gpu, f'batch-gpu-{batch_gpu}')
+        out['whole_batch'] = loop(None, 'whole-batch')
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        ratio = reader / out['accumulated']['images_per_s']
+        log(f'  reader {reader:.1f} samples/s = {ratio:.1f}x the loop\'s '
+            f'images/s with --batch-gpu {batch_gpu}')
+        if ratio < 5:
+            raise AssertionError(f'the reader feeds only {ratio:.1f}x the '
+                                 'loop\'s images/s')
+
+        # 4. resume from the first run's snapshot; the restored state is
+        # checked against the file before the step
+        rec.wrap(checkpoint, 'restore_train_state', lambda out, *a: a[0],
+                 after=check_restored)
+        train_aio.main(['--outdir', os.path.join(tmp, 'resumed'), *base,
+                        '--batch-gpu', str(batch_gpu), '--resume', snapshot])
+        sync()
+        log('[loop] cli/train_aio --resume: one more step from the snapshot')
+
+        # 5. sampling from the first run's EMA snapshot
+        gen_dir = os.path.join(tmp, 'generated')
+        generate.main(['--network', ema_snapshot, '--seeds', '0-7',
+                       '--outdir', gen_dir, '--device', device])
+        pngs = sorted(f for f in os.listdir(gen_dir) if f.endswith('.png'))
+        imgs = [read_png_rgba(os.path.join(gen_dir, f)) for f in pngs]
+        if len(pngs) != 8 or any(i.shape != (size, size, 4) for i in imgs):
+            raise AssertionError(f'generate wrote {pngs}')
+        log(f'  ok  cli/generate from {os.path.basename(ema_snapshot)}: 8 '
+            f'seeds, {len(pngs)} PNGs of {size}x{size}, mean alpha '
+            f'{np.mean([i[..., 3].mean() / 255 for i in imgs]):.3f}')
+
+        # 6. the snapshots
+        for name, path, size_b, sec in rec.snapshots:
+            log(f'  {name} {os.path.relpath(path, tmp)}: {size_b} bytes in '
+                f'{sec:.2f} s')
+        out['launches'] = launches
+        out['snapshots'] = [(name, os.path.basename(path), size_b, sec)
+                            for name, path, size_b, sec in rec.snapshots]
+    finally:
+        rec.undo()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, 'montage_gan_tpu_torch', 'csrc')):
         sys.exit('chip_smoke.py: montage_gan_tpu_torch/ is not beside this '
@@ -1441,6 +1764,9 @@ def main():
     launches, variants = phase_aio_train(card, kernels, MontageConfig())
     launches['composite'] = composite_launches
     phase_aio_cross_device()
+    gc.collect()
+    torch.cuda.empty_cache()
+    loop = phase_loop(card, kernels)
 
     sources = {
         'bias_act': ('bias_act.cu', 'bias_act_kernel.py:39'),
@@ -1453,6 +1779,7 @@ def main():
     for name in [*kernels, 'composite']:
         err, ms, plain, bound_ms, bound_by, lib = checks[name]
         src, rep = sources[name]
+        row_loop = loop['launches'].get(name)
         rows.append({'name': name, 'route': 'cuda',
                      'source': f'montage_gan_tpu_torch/csrc/{src}',
                      'replaces': f'montage_gan_tpu/ops/pallas/{rep}',
@@ -1462,6 +1789,10 @@ def main():
         if name in ('bias_act', 'upfirdn2d', 'warp_forward',
                     'warp_transpose'):
             rows[-1]['launches_by_variant'] = variants[name]
+        if row_loop is not None:
+            # the training CLI's one accumulated step at batch 32 (and its
+            # EMA grid), checked against expected_train_launches
+            rows[-1]['launches_cli_step_batch32'] = row_loop
         if name == 'composite':
             # its main-path launch by variant, the host's time per call and
             # F.grid_sample + alpha_composite, at the main shape
@@ -1481,6 +1812,9 @@ def main():
         'shape': '[8,256,256,4] -> [8,128,128,4] f32 down 2',
         'max_abs_err': err, 'ms': ms, 'plain_ms': plain,
         'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': lib}
+    log(json.dumps({'loop': {k: v for k, v in loop.items()
+                             if k != 'launches'}, 'card': card}))
+    log(f'[total] {time.perf_counter() - START:.1f} s')
     log(json.dumps({'kernels': rows}))
     log(card_line())
     log(json.dumps({'ok': True, 'device': {

@@ -9,8 +9,8 @@ with its ``.json``).
     python -m montage_gan_tpu_torch.cli.generate --network CKPT \\
         --seeds 0-7 --outdir out [--device cuda]
 
-PNGs are written by a small zlib encoder here, so the CLI needs neither PIL
-nor click.
+PNGs are written by the port's zlib encoder (``utils/png.py``), so the CLI
+needs neither PIL nor click.
 """
 
 from __future__ import annotations
@@ -18,14 +18,13 @@ from __future__ import annotations
 import argparse
 import os
 import re
-import struct
-import zlib
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..utils.checkpoint import load_network
+from ..utils.png import write_png_rgba
 from ..utils.serving import build_inference_fn
 
 
@@ -39,23 +38,6 @@ def parse_range(s: str) -> List[int]:
         else:
             out.append(int(part))
     return out
-
-
-def write_png_rgba(path: str, u8: np.ndarray) -> None:
-    """Write an ``[H, W, 4]`` uint8 array as an 8-bit RGBA PNG."""
-    h, w, c = u8.shape
-    assert c == 4 and u8.dtype == np.uint8
-    raw = np.concatenate([np.zeros((h, 1), np.uint8),   # filter type 0
-                          u8.reshape(h, w * 4)], axis=1).tobytes()
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack('>I', len(data)) + tag + data
-                + struct.pack('>I', zlib.crc32(tag + data) & 0xffffffff))
-
-    header = struct.pack('>IIBBBBB', w, h, 8, 6, 0, 0, 0)  # 8-bit RGBA
-    with open(path, 'wb') as f:
-        f.write(b'\x89PNG\r\n\x1a\n' + chunk(b'IHDR', header)
-                + chunk(b'IDAT', zlib.compress(raw, 6)) + chunk(b'IEND', b''))
 
 
 def to_u8(x01: np.ndarray) -> np.ndarray:

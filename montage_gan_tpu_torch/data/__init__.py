@@ -1,1 +1,2 @@
-"""Training data of the port: the in-memory synthetic layer batches."""
+"""Training data of the port: the layer dataset, its sampler, and synthetic
+layers."""

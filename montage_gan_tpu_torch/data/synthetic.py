@@ -1,15 +1,22 @@
-"""Synthetic multi-layer RGBA batches.
+"""Synthetic multi-layer RGBA data.
 
-The port's own copy of ``synthetic_batch`` from
-``montage_gan_tpu/data/synthetic.py`` (the reference's training data is
-withheld): each of the 9 named layers is an anti-aliased coloured ellipse at
-that layer's canonical position, drawn with numpy from the caller's
-``RandomState``, so both packages give the same batch for the same seed.
+The port's own copy of ``montage_gan_tpu/data/synthetic.py`` (the
+reference's training data is withheld): each of the 9 named layers is an
+anti-aliased coloured ellipse at that layer's canonical position, drawn with
+numpy from a ``RandomState``, so both packages give the same pixels for the
+same seed.  ``make_synthetic_layer_dataset`` writes them as layer PNGs in the
+directory-of-directories layout ``DatasetAIO`` reads, through the port's PNG
+writer.
 """
 
 from __future__ import annotations
 
+import os
+from typing import Sequence
+
 import numpy as np
+
+from ..utils.png import write_png_rgba
 
 # (name, center_xy, radius_xy) loosely following the reference layer geometry
 DEFAULT_SPEC = (
@@ -37,6 +44,28 @@ def _ellipse_layer(size: int, center, radius, color, rng) -> np.ndarray:
     img[..., :3] = np.asarray(color, np.float32)
     img[..., 3] = alpha
     return img
+
+
+def make_synthetic_layer_dataset(path: str, num_samples: int = 16,
+                                 size: int = 256,
+                                 spec: Sequence = DEFAULT_SPEC,
+                                 seed: int = 0) -> str:
+    """Write a synthetic dataset to ``path`` and return it."""
+    rng = np.random.RandomState(seed)
+    scale = size / 256.0
+    os.makedirs(path, exist_ok=True)
+    for n in range(num_samples):
+        d = os.path.join(path, f"{n:05d}")
+        os.makedirs(d, exist_ok=True)
+        for name, center, radius in spec:
+            color = rng.uniform(0.1, 1.0, size=3)
+            img = _ellipse_layer(
+                size, (center[0] * scale, center[1] * scale),
+                (max(radius[0] * scale, 3), max(radius[1] * scale, 3)),
+                color, rng)
+            write_png_rgba(os.path.join(d, f"{name}.png"),
+                           (img * 255).astype(np.uint8))
+    return path
 
 
 def synthetic_batch(rng: np.random.RandomState, batch: int,

@@ -23,6 +23,20 @@ from ..utils.image_utils import stack_layer_to_channel
 _KERNELS = (7, 5, 3, 3, 3)
 
 
+def auto_stn_stages(img_resolution: int, max_stages: int = 5) -> int:
+    """Deepest localization depth that keeps a ≥1px spatial output
+    (the reference's fixed 5 stages assume 256px input)."""
+    size = img_resolution
+    stages = 0
+    for k in _KERNELS[:max_stages]:
+        nxt = (size - (k - 1)) // 2
+        if nxt < 1:
+            break
+        size = nxt
+        stages += 1
+    return max(stages, 1)
+
+
 def lecun_normal_(w: torch.Tensor, fan_in: int,
                   generator: Optional[torch.Generator]) -> None:
     """flax's default kernel init: truncated normal in ±2σ with variance

@@ -21,20 +21,24 @@ Port of ``montage_gan_tpu/training/train_step.py`` (``TrainHyper``,
    ADA controller over the 9 local lanes and the global lane ``L``, which
    counts global D executions only.
 
-Gradients are scrubbed of NaN/inf before every optimizer step.  PyTorch
-updates in place: the ensemble's parameters and buffers (``w_avg``) move
-inside the step, and ``train_step`` returns the state it was given.  The
-phases run eagerly; JAX's single traced program and its TPU dispatch
-machinery (``phase_exec.py``) have no counterpart.  Not ported yet (they
-raise ``NotImplementedError``): microbatch accumulation and conditional
-labels.
+With ``microbatch`` (``global_microbatch`` for the renderer and global
+phases) each phase runs in rounds over slices of the batch and sums their
+gradients (``accum_value_and_grad``), as the JAX package's phase executor
+does for the local phases (``training/phase_exec.py:172,203,234,261``) and
+its step for the renderer and global phases.  Gradients are scrubbed of
+NaN/inf before every optimizer step.  PyTorch updates in place: the
+ensemble's parameters and buffers (``w_avg``) move inside the step, and
+``train_step`` returns the state it was given.  The phases run eagerly;
+JAX's single traced program and its TPU dispatch machinery
+(``phase_exec.py``) have no counterpart.  Not ported yet (it raises
+``NotImplementedError``): conditional labels.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -87,6 +91,29 @@ class TrainHyper:
     microbatch: Optional[int] = None
     global_microbatch: Optional[int] = None
     bucket_microbatch: Optional[int] = None
+
+    @property
+    def accum_rounds(self) -> int:
+        """Rounds of the local phases: ``batch_size / microbatch``."""
+        return _rounds(self.batch_size, self.microbatch, 'microbatch')
+
+    @property
+    def global_accum_rounds(self) -> int:
+        """Rounds of the renderer and global phases: ``batch_size /
+        global_microbatch``, else those of the local phases."""
+        if self.global_microbatch is None:
+            return self.accum_rounds
+        return _rounds(self.batch_size, self.global_microbatch,
+                       'global_microbatch')
+
+
+def _rounds(batch: int, microbatch: Optional[int], name: str) -> int:
+    if microbatch is None:
+        return 1
+    if microbatch <= 0 or batch % microbatch != 0:
+        raise ValueError(f'{name} {microbatch} does not divide batch_size '
+                         f'{batch}')
+    return batch // microbatch
 
 
 @dataclasses.dataclass
@@ -149,13 +176,72 @@ class AMSGrad(torch.optim.Optimizer):
                                                + group['eps']))
 
 
+def accum_value_and_grad(loss_fn: Callable, params: Sequence[torch.Tensor],
+                         data: Sequence[torch.Tensor], rounds: int,
+                         w_avg: Optional[torch.Tensor] = None):
+    """``loss_fn(*data_mb) → (loss, aux)`` with gradient accumulation over
+    microbatch rounds: port of ``accum_value_and_grad``
+    (``montage_gan_tpu/training/train_step.py:154-207``; the reference's
+    batch_gpu rounds, custom/training_loop_aio.py:620-627).
+
+    Round ``r`` takes the ``r``-th of ``rounds`` equal slices of every
+    ``data`` tensor along the batch axis; a batch that ``rounds`` does not
+    divide raises.  Gradients are SUMMED over the rounds (the reference's
+    accumulation); ``aux['stats']``, ``aux['sign_real']`` and
+    ``aux['pl_mean']`` are averaged.  ``w_avg``, the mapping's buffer that a
+    forward moves in place, starts every round from the same value and ends
+    at the rounds' mean: an EMA step is linear in the batch mean, so that is
+    the JAX package's averaged ``moving_stats``.  Every random draw of
+    ``loss_fn`` comes from its own ``Draws``, round after round.
+
+    Returns ``(aux, grads)``; a gradient is ``None`` where the loss does
+    not reach the parameter."""
+    if rounds == 1:
+        loss, aux = loss_fn(*data)
+        aux = {k: ({n: v.detach() for n, v in a.items()} if k == 'stats'
+                   else a.detach()) for k, a in aux.items()}
+        return aux, torch.autograd.grad(loss, params, allow_unused=True)
+    for x in data:
+        if x.shape[0] % rounds != 0:
+            raise ValueError(f'data batch {x.shape[0]} is not divisible by '
+                             f'{rounds} accumulation rounds '
+                             '(batch_size/microbatch)')
+    slices = [x.split(x.shape[0] // rounds) for x in data]
+    base = None if w_avg is None else w_avg.detach().clone()
+    gsum: List[Optional[torch.Tensor]] = [None] * len(params)
+    aux_r, w_avg_r = [], []
+    for r in range(rounds):
+        if base is not None:
+            w_avg.copy_(base)
+        loss, aux = loss_fn(*(s[r] for s in slices))
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        gsum = [g if acc is None else (acc if g is None else acc + g)
+                for acc, g in zip(gsum, grads)]
+        aux_r.append(aux)
+        if base is not None:
+            w_avg_r.append(w_avg.detach().clone())
+    if base is not None:
+        w_avg.copy_(torch.stack(w_avg_r).mean(dim=0))
+
+    def mean(values):
+        return torch.stack([v.detach() for v in values]).mean(dim=0)
+
+    aux = {}
+    if 'stats' in aux_r[0]:
+        aux['stats'] = {k: mean([a['stats'][k] for a in aux_r])
+                        for k in aux_r[0]['stats']}
+    for k in ('sign_real', 'pl_mean'):
+        if k in aux_r[0]:
+            aux[k] = mean([a[k] for a in aux_r])
+    return aux, gsum
+
+
 def _apply_grads(opt: torch.optim.Optimizer,
                  params: Sequence[torch.nn.Parameter],
-                 loss: torch.Tensor) -> None:
-    """One optimizer step on the gradients of ``loss``.  A parameter the
-    loss does not reach gets a zero gradient, as a JAX gradient tree has
-    one, so that Adam's moments decay for it as in optax."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+                 grads: Sequence[Optional[torch.Tensor]]) -> None:
+    """One optimizer step on ``grads``.  A parameter without a gradient
+    gets a zero one, as a JAX gradient tree has one, so that Adam's moments
+    decay for it as in optax."""
     for p, g in zip(params, grads):
         p.grad = (torch.zeros_like(p) if g is None else
                   torch.nan_to_num(g, nan=0.0, posinf=1e5, neginf=-1e5))
@@ -178,9 +264,8 @@ class MontageTrainer:
                  device: Union[str, torch.device] = 'cuda'):
         if ens.local_d is None:
             raise ValueError('training needs MontageEnsemble(cfg, with_d=True)')
-        if hyper.microbatch is not None or hyper.global_microbatch is not None:
-            raise NotImplementedError('microbatch accumulation is not ported '
-                                      'yet')
+        self.rounds = hyper.accum_rounds            # raise if not a divisor
+        self.global_rounds = hyper.global_accum_rounds
         self.ens = ens
         self.hyper = hyper
         self.device = torch.device(device)
@@ -312,54 +397,78 @@ class MontageTrainer:
         # ---- the renderer phase
         if do_renderer and hyper.train_renderer and self._use_renderer:
             rdraws = draws.scoped('renderer_')
-            loss, st = losses.renderer_loss(
-                ens, z(rdraws), stack, rdraws, hyper.renderer_loss,
-                hyper.renderer_use_real, hyper.style_mixing_prob)
-            _apply_grads(state.opt_renderer,
-                         list(ens.renderer.parameters()), loss)
-            stats.update({k: v.detach() for k, v in st.items()})
+
+            def rloss(z_mb, stack_mb):
+                loss, st = losses.renderer_loss(
+                    ens, z_mb, stack_mb, rdraws, hyper.renderer_loss,
+                    hyper.renderer_use_real, hyper.style_mixing_prob)
+                return loss, {'stats': st}
+            r_params = list(ens.renderer.parameters())
+            aux, grads = accum_value_and_grad(
+                rloss, r_params, (z(rdraws), stack), self.global_rounds)
+            _apply_grads(state.opt_renderer, r_params, grads)
+            stats.update({k: v.detach() for k, v in aux['stats'].items()})
 
         if do_local and hyper.train_local:
+            w_avg = ens.mapping.w_avg
             g_params = [list(ens.mapping.parameters())
                         + list(net.parameters()) for net in ens.local_g]
             for i, name in enumerate(ens.cfg.layer_names):
                 aug_p = state.aug_p[i]
                 d_params = list(ens.local_d[i].parameters())
+
                 # ---- local_Gmain
-                loss, st = losses.local_gmain_loss(
-                    ens, i, z(), draws, self._local_aug, aug_p,
-                    hyper.style_mixing_prob)
-                _apply_grads(state.opt_local_g[i], g_params[i], loss)
-                _merge_stats(stats, {f'{name}/{k}': v.detach()
-                                     for k, v in st.items()})
+                def gmain(z_mb, i=i, aug_p=aug_p):
+                    loss, st = losses.local_gmain_loss(
+                        ens, i, z_mb, draws, self._local_aug, aug_p,
+                        hyper.style_mixing_prob)
+                    return loss, {'stats': st}
+                aux, grads = accum_value_and_grad(
+                    gmain, g_params[i], (z(),), self.rounds, w_avg)
+                _apply_grads(state.opt_local_g[i], g_params[i], grads)
+                _merge_stats(stats, {f'{name}/{k}': v
+                                     for k, v in aux['stats'].items()})
                 # ---- local_Greg (path length)
                 if (hyper.g_reg_interval is not None and hyper.pl_weight != 0
                         and step % hyper.g_reg_interval == 0):
-                    loss, pl_i, _ = losses.local_gpl_loss(
-                        ens, i, z(), draws, state.pl_mean[i],
-                        hyper.pl_batch_shrink, hyper.pl_decay,
-                        hyper.pl_weight, hyper.style_mixing_prob)
-                    _apply_grads(state.opt_local_g[i], g_params[i],
-                                 loss * float(hyper.g_reg_interval))
-                    state.pl_mean[i] = pl_i
+                    def gpl(z_mb, i=i, pl_mean=state.pl_mean[i]):
+                        loss, pl_i, st = losses.local_gpl_loss(
+                            ens, i, z_mb, draws, pl_mean,
+                            hyper.pl_batch_shrink, hyper.pl_decay,
+                            hyper.pl_weight, hyper.style_mixing_prob)
+                        return (loss * float(hyper.g_reg_interval),
+                                {'stats': st, 'pl_mean': pl_i})
+                    aux, grads = accum_value_and_grad(
+                        gpl, g_params[i], (z(),), self.rounds, w_avg)
+                    _apply_grads(state.opt_local_g[i], g_params[i], grads)
+                    state.pl_mean[i] = aux['pl_mean']
+
                 # ---- local_Dmain
-                loss, st, sign_real = losses.local_dmain_loss(
-                    ens, i, z(), crops[i], draws, self._local_aug, aug_p,
-                    hyper.style_mixing_prob)
-                _apply_grads(state.opt_local_d[i], d_params, loss)
-                _merge_stats(stats, {f'{name}/{k}': v.detach()
-                                     for k, v in st.items()})
-                state.ada_sign_sum[i] += sign_real.detach()
+                def dmain(z_mb, real_mb, i=i, aug_p=aug_p):
+                    loss, st, sign_real = losses.local_dmain_loss(
+                        ens, i, z_mb, real_mb, draws, self._local_aug, aug_p,
+                        hyper.style_mixing_prob)
+                    return loss, {'stats': st, 'sign_real': sign_real}
+                aux, grads = accum_value_and_grad(
+                    dmain, d_params, (z(), crops[i]), self.rounds, w_avg)
+                _apply_grads(state.opt_local_d[i], d_params, grads)
+                _merge_stats(stats, {f'{name}/{k}': v
+                                     for k, v in aux['stats'].items()})
+                state.ada_sign_sum[i] += aux['sign_real']
                 state.ada_sign_count[i] += 1.0
                 # ---- local_Dreg (R1)
                 if (hyper.d_reg_interval is not None and hyper.r1_gamma != 0
                         and step % hyper.d_reg_interval == 0):
-                    loss, _, sign_real = losses.local_dr1_loss(
-                        ens, i, crops[i], draws, self._local_aug, aug_p,
-                        hyper.r1_gamma)
-                    _apply_grads(state.opt_local_d[i], d_params,
-                                 loss * float(hyper.d_reg_interval))
-                    state.ada_sign_sum[i] += sign_real.detach()
+                    def dr1(real_mb, i=i, aug_p=aug_p):
+                        loss, st, sign_real = losses.local_dr1_loss(
+                            ens, i, real_mb, draws, self._local_aug, aug_p,
+                            hyper.r1_gamma)
+                        return (loss * float(hyper.d_reg_interval),
+                                {'stats': st, 'sign_real': sign_real})
+                    aux, grads = accum_value_and_grad(
+                        dr1, d_params, (crops[i],), self.rounds)
+                    _apply_grads(state.opt_local_d[i], d_params, grads)
+                    state.ada_sign_sum[i] += aux['sign_real']
                     state.ada_sign_count[i] += 1.0
 
         if do_global and self._train_global:
@@ -387,35 +496,52 @@ class MontageTrainer:
             stats.update({f'global/{k}': v.detach() for k, v in st.items()})
 
         def count_sign(sign):
-            state.ada_sign_sum[lane] += sign.detach()
+            state.ada_sign_sum[lane] += sign
             state.ada_sign_count[lane] += 1.0
 
+        def z():
+            return draws.normal([batch, ens.cfg.z_dim], 'z')
+
         if state.step % goi == 0:
-            loss, st = losses.global_gmain_loss(
-                ens, draws.normal([batch, ens.cfg.z_dim], 'z'), draws,
-                self._global_aug, aug_p, hyper.style_mixing_prob,
-                self._use_renderer)
-            _apply_grads(state.opt_global_g, self._global_g_params(),
-                         loss * float(goi))
-            put(st)
-            loss, st, sign = losses.global_dmain_loss(
-                ens, draws.normal([batch, ens.cfg.z_dim], 'z'), stack, draws,
-                self._global_aug, aug_p, hyper.style_mixing_prob,
-                self._use_renderer, hyper.global_d_real_use_renderer)
-            _apply_grads(state.opt_global_d, d_params, loss * float(goi))
-            put(st)
-            count_sign(sign)
+            def ggmain(z_mb):
+                loss, st = losses.global_gmain_loss(
+                    ens, z_mb, draws, self._global_aug, aug_p,
+                    hyper.style_mixing_prob, self._use_renderer)
+                return loss * float(goi), {'stats': st}
+            g_params = self._global_g_params()
+            aux, grads = accum_value_and_grad(
+                ggmain, g_params, (z(),), self.global_rounds,
+                ens.mapping.w_avg)
+            _apply_grads(state.opt_global_g, g_params, grads)
+            put(aux['stats'])
+
+            def gdmain(z_mb, stack_mb):
+                loss, st, sign = losses.global_dmain_loss(
+                    ens, z_mb, stack_mb, draws, self._global_aug, aug_p,
+                    hyper.style_mixing_prob, self._use_renderer,
+                    hyper.global_d_real_use_renderer)
+                return loss * float(goi), {'stats': st, 'sign_real': sign}
+            aux, grads = accum_value_and_grad(
+                gdmain, d_params, (z(), stack), self.global_rounds,
+                ens.mapping.w_avg)
+            _apply_grads(state.opt_global_d, d_params, grads)
+            put(aux['stats'])
+            count_sign(aux['sign_real'])
         if hyper.d_reg_interval is not None and hyper.global_r1_gamma != 0:
             interval = hyper.d_reg_interval * goi
             if state.step % interval == 0:
-                loss, st, sign = losses.global_dr1_loss(
-                    ens, stack, draws, self._global_aug, aug_p,
-                    hyper.global_r1_gamma, self._use_renderer,
-                    hyper.global_d_real_use_renderer)
-                _apply_grads(state.opt_global_d, d_params,
-                             loss * float(interval))
-                put(st)
-                count_sign(sign)
+                def gdr1(stack_mb):
+                    loss, st, sign = losses.global_dr1_loss(
+                        ens, stack_mb, draws, self._global_aug, aug_p,
+                        hyper.global_r1_gamma, self._use_renderer,
+                        hyper.global_d_real_use_renderer)
+                    return (loss * float(interval),
+                            {'stats': st, 'sign_real': sign})
+                aux, grads = accum_value_and_grad(
+                    gdr1, d_params, (stack,), self.global_rounds)
+                _apply_grads(state.opt_global_d, d_params, grads)
+                put(aux['stats'])
+                count_sign(aux['sign_real'])
 
     @torch.no_grad()
     def _ema_and_ada(self, state: MontageTrainState) -> None:

@@ -10,6 +10,7 @@ power-of-two nominal resolution assigned to the shape.
 from __future__ import annotations
 
 import math
+from itertools import product
 from typing import List, Optional, Sequence, Tuple
 
 
@@ -46,3 +47,40 @@ def calc_init_res(shape: Sequence[int], resolution: Optional[int] = None,
     res_log2 = int(math.log2(resolution))
     init_res = [int(s * 2 ** (conv_config_index - res_log2)) for s in size]
     return init_res, resolution, res_log2
+
+
+def calc_res_combination(conv_config_index: int = 2,
+                         range_res: Tuple[int, int] = (32, 257),
+                         index_range: Tuple[int, int] = (5, 9)
+                         ) -> List[Tuple[int, int]]:
+    """All (h, w) pairs the synthesis pyramid can produce exactly."""
+    acceptable: List[int] = []
+    for i in range(*range_res):
+        for j in range(*index_range):
+            if i % (2 ** j) == 0 and i not in acceptable:
+                acceptable.append(i)
+                break
+
+    combos: List[Tuple[int, int]] = []
+    for pair in product(acceptable, acceptable):
+        init_res, _, res_log2 = calc_init_res(
+            pair, conv_config_index=conv_config_index)
+        factor = 2 ** (res_log2 - conv_config_index)
+        if init_res[0] * factor == pair[0] and init_res[1] * factor == pair[1]:
+            combos.append(pair)
+    return combos
+
+
+def find_min_res_combination(shape: Sequence[int],
+                             res_combination: Optional[
+                                 List[Tuple[int, int]]] = None,
+                             conv_config_index: int = 2
+                             ) -> Optional[Tuple[int, int]]:
+    """Smallest acceptable (h, w) that covers ``shape``."""
+    if res_combination is None:
+        res_combination = calc_res_combination(conv_config_index)
+    for r1, r2 in res_combination:
+        if r1 < shape[0] or r2 < shape[1]:
+            continue
+        return r1, r2
+    return None

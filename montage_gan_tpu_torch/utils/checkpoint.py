@@ -2,7 +2,14 @@
 snapshots.
 
 The port's own checkpoint is one ``torch.save`` file of
-``{'config': dataclasses.asdict(cfg), 'state_dict': ...}``.
+``{'config': dataclasses.asdict(cfg), 'state_dict': ...}``; the training
+loop's EMA snapshots (``save_ema_snapshot``) take that format, so
+``cli/generate.py`` samples from them.  A train-state snapshot
+(``save_train_state``) is one ``torch.save`` file of everything a step
+reads: the ensemble's state dict, the EMA's, every optimizer's
+``state_dict()``, ``pl_mean``, the ADA controller and ``step``.  Every file
+is written to a ``.tmp`` path and then renamed, so a snapshot on disk is
+whole.
 
 A JAX EMA snapshot is a pair ``<name>.msgpack`` + ``<name>.json``
 (``montage_gan_tpu/utils/checkpoint.py:57-87``): the JSON holds the
@@ -17,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,12 +36,85 @@ _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
 
 
+def _save(path: str, payload: Dict[str, Any]) -> None:
+    tmp = path + '.tmp'
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
 def save_checkpoint(path: str, cfg: MontageConfig,
                     model: MontageEnsemble) -> None:
-    tmp = path + '.tmp'
-    torch.save({'config': dataclasses.asdict(cfg),
-                'state_dict': model.state_dict()}, tmp)
-    os.replace(tmp, path)
+    _save(path, {'config': dataclasses.asdict(cfg),
+                 'state_dict': model.state_dict()})
+
+
+def save_ema_snapshot(path: str, cfg: MontageConfig, ema: MontageEnsemble,
+                      renderer: Optional[torch.nn.Module] = None) -> None:
+    """The sampling snapshot of a training run, in ``save_checkpoint``'s
+    format: the EMA's mapping, local Gs and STN, and the live renderer
+    (the JAX package's ``save_ema_snapshot``, ``utils/checkpoint.py:
+    62-71``)."""
+    state_dict = dict(ema.state_dict())
+    if renderer is not None:
+        state_dict.update({f'renderer.{k}': v
+                           for k, v in renderer.state_dict().items()})
+    _save(path, {'config': dataclasses.asdict(cfg),
+                 'state_dict': state_dict})
+
+
+_OPTIMIZERS = ('opt_local_g', 'opt_local_d', 'opt_global_g', 'opt_global_d',
+               'opt_renderer')
+_CONTROLLER = ('pl_mean', 'aug_p', 'ada_sign_sum', 'ada_sign_count')
+
+
+def save_train_state(run_dir: str, kimg: int, state) -> str:
+    """Write ``network-snapshot-{kimg:06d}.pt`` in ``run_dir`` from a
+    ``training.train_step.MontageTrainState``; returns its path."""
+    path = os.path.join(run_dir, f'network-snapshot-{kimg:06d}.pt')
+    payload = {'config': dataclasses.asdict(state.model.cfg),
+               'model': state.model.state_dict(),
+               'ema': state.ema.state_dict(), 'step': int(state.step)}
+    for name in _OPTIMIZERS:
+        opt = getattr(state, name)
+        payload[name] = ([o.state_dict() for o in opt]
+                         if isinstance(opt, list) else
+                         None if opt is None else opt.state_dict())
+    for name in _CONTROLLER:
+        payload[name] = getattr(state, name)
+    _save(path, payload)
+    return path
+
+
+def restore_train_state(path: str, trainer):
+    """The ``MontageTrainState`` a ``save_train_state`` file holds, on
+    ``trainer``'s device, around ``trainer``'s ensemble (whose config must
+    be the snapshot's).  The next step from it is the step the saving run
+    would have taken."""
+    if path.endswith('.msgpack'):
+        raise ValueError(f'{path}: a JAX train state; its optax moments do '
+                         'not carry over to the port (ROADMAP queue 1, item '
+                         '7). Resume from a port snapshot (.pt)')
+    ckpt = torch.load(path, map_location=trainer.device, weights_only=True)
+    cfg = MontageConfig.from_dict(ckpt['config'])
+    if cfg != trainer.ens.cfg:
+        raise ValueError(f'{path}: the snapshot\'s config {cfg} is not the '
+                         f'trainer\'s {trainer.ens.cfg}')
+    state = trainer.state_from_variables(ckpt['model'])
+    state.ema.load_state_dict(ckpt['ema'])
+    for name in _OPTIMIZERS:
+        opt, saved = getattr(state, name), ckpt[name]
+        opts = opt if isinstance(opt, list) else [] if opt is None else [opt]
+        saved = saved if isinstance(saved, list) else (
+            [] if saved is None else [saved])
+        if len(opts) != len(saved):
+            raise ValueError(f'{path}: {len(saved)} {name} states, the '
+                             f'trainer has {len(opts)}')
+        for o, sd in zip(opts, saved):
+            o.load_state_dict(sd)
+    for name in _CONTROLLER:
+        getattr(state, name).copy_(ckpt[name])
+    state.step = int(ckpt['step'])
+    return state
 
 
 def _decode_ndarray(data: bytes) -> np.ndarray:
@@ -77,8 +157,8 @@ def load_jax_snapshot(path: str) -> Tuple[MontageConfig, Dict[str, Any]]:
     return cfg, read_flax_msgpack(base + '.msgpack')
 
 
-def load_network(path: str, device='cpu') -> Tuple[MontageConfig,
-                                                   MontageEnsemble]:
+def load_network(path: str, device='cuda') -> Tuple[MontageConfig,
+                                                    MontageEnsemble]:
     """A port checkpoint, or a JAX EMA snapshot (``.msgpack`` with its
     ``.json``), as (config, model in eval mode on ``device``).  A snapshot
     saved without its renderer gives a model without one."""

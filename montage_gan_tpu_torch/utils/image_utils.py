@@ -106,3 +106,20 @@ def make_batch_for_local_d_np(blhwc: np.ndarray,
         crop = centered[:, idx, y0:y0 + bh, x0:x0 + bw]
         outs.append(crop * 2.0 - 1.0 if to_minus11 else crop)
     return outs
+
+
+def alpha_composite_np(layers: np.ndarray) -> np.ndarray:
+    """Numpy straight-alpha composite (``[..., L, H, W, 4]`` in [0, 1]) of
+    ``montage_gan_tpu/utils/image_utils.py:158``, for the training loop's
+    image grids."""
+    canvas = layers[..., 0, :, :, :]
+    for i in range(1, layers.shape[-4]):
+        top = layers[..., i, :, :, :]
+        ca, ta = canvas[..., 3:], top[..., 3:]
+        ao = ta + ca * (1 - ta)
+        safe = np.where(ao == 0, 1.0, ao)
+        co = np.where(ao == 0, 0.0,
+                      (top[..., :3] * ta + canvas[..., :3] * ca * (1 - ta))
+                      / safe)
+        canvas = np.concatenate([co, ao], axis=-1)
+    return canvas

@@ -203,7 +203,7 @@ def test_generate_cli_matches_jax(micro, tmp_path, monkeypatch):
                           '--device', 'cpu'])
 
     # the port's own checkpoint round-trips to the same pictures
-    pcfg, model = tckpt.load_network(snap + '.msgpack')
+    pcfg, model = tckpt.load_network(snap + '.msgpack', device='cpu')
     assert dataclasses.asdict(pcfg) == dataclasses.asdict(cfg)
     tckpt.save_checkpoint(str(tmp_path / 'port.pt'), pcfg, model)
     port_generate(['--network', str(tmp_path / 'port.pt'), '--seeds', '0-1',
