@@ -58,15 +58,19 @@ Phases, in order; each raises on failure, and the script then exits non-zero:
 13. loop: the training CLI and loop at the reference's batch 32, config
    ``aio``, in a temporary directory outside the repository (deleted at the
    end): a synthetic dataset of 64 samples (9 layers, 256 px) written by
-   the port's PNG writer; the prefetcher alone (samples/s, at least 5x the
-   loop's images/s); ``cli/train_aio.main`` for one step with ``--batch-gpu
-   16`` (its files, finite stats, and the exact launches of K1'-K4' in the
-   accumulated step and its EMA grid); ``training_loop`` for 6 steps with
-   and without ``--batch-gpu`` (images/s of steps 2-6, the data wait, peak
-   memory; without it "does not fit" is reported, not raised); the CLI
-   again with ``--resume`` (the restored state checked bit for bit against
-   the snapshot file); ``cli/generate`` for 8 seeds from the EMA snapshot;
-   every snapshot's bytes and save and restore seconds.
+   the port's PNG writer, which picks PIL's row filters (the rows of each
+   filter type counted; Up and Paeth rows required); the prefetcher alone
+   (samples/s, at least 5x the loop's images/s); ``cli/train_aio.main`` for
+   one step with ``--batch-gpu 16`` (its files, finite stats, and the exact
+   launches of K1'-K4' in the accumulated step and its EMA grid), its
+   train-state snapshot restored into a fresh trainer and checked bit for
+   bit against the state the run returned; ``training_loop`` for 6 steps
+   with and without ``--batch-gpu`` (images/s of steps 2-6, the data wait,
+   peak memory; without it "does not fit" is reported, not raised); the
+   CLI again with ``--resume`` (one more step from the saved one);
+   ``cli/generate`` for 8 seeds from the EMA snapshot; every snapshot's
+   bytes and save and restore seconds, as the runs' ``log.txt`` report
+   them.
 
 Each main path (6, 8, 10, 11 and 13's CLI step and 6-step loops) is driven
 with every launch count set to 0 just before it and read just after.  The last two lines are the card's name and
@@ -80,6 +84,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import sys
 import time
@@ -1408,6 +1413,9 @@ LOOP_BATCH = 32
 LOOP_BATCH_GPU = 16
 LOOP_STEPS = 6
 LOOP_SAMPLES = 64
+# what the loop prints of a snapshot's save or restore (training/loop_aio.py)
+SNAPSHOT_LINE = re.compile(r'^(Saved|Restored) (.+): (\d+) bytes in '
+                           r'([0-9.]+) s$', re.M)
 
 
 def read_stats(run_dir):
@@ -1433,210 +1441,201 @@ def check_run_dir(run_dir):
     return records
 
 
-class Recorder:
-    """Wraps module functions for the loop phase: times every snapshot save
-    and restore (path, bytes, seconds), and can run a check on a call's
-    result."""
-
-    def __init__(self):
-        self.snapshots = []
-        self._undo = []
-
-    def wrap(self, module, name, path_of, after=None):
-        fn = getattr(module, name)
-
-        def wrapped(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            sec = time.perf_counter() - t0
-            path = path_of(out, *args)
-            self.snapshots.append((name, path, os.path.getsize(path), sec))
-            if after is not None:
-                after(out, *args, **kwargs)
-            return out
-        setattr(module, name, wrapped)
-        self._undo.append((module, name, fn))
-
-    def undo(self):
-        for module, name, fn in reversed(self._undo):
-            setattr(module, name, fn)
-        self._undo = []
+def snapshot_lines(run_dir):
+    """(Saved or Restored, path, bytes, seconds) of every snapshot a CLI run
+    wrote or read, from its ``log.txt``."""
+    with open(os.path.join(run_dir, 'log.txt')) as f:
+        return [(what, path, int(n), float(sec))
+                for what, path, n, sec in SNAPSHOT_LINE.findall(f.read())]
 
 
-def check_restored(state, path, trainer):
-    """Raises unless a restored train state equals the snapshot file bit for
-    bit: weights and buffers, the EMA, every optimizer's moments, the ADA
-    controller and the step."""
+def row_filters(data):
+    """How many rows of each PNG filter type (None, Sub, Up, Average,
+    Paeth) the dataset's files hold."""
+    from montage_gan_tpu_torch.utils.png import parse
+    counts = [0] * 5
+    for root, _, files in os.walk(data):
+        for name in files:
+            if name.endswith('.png'):
+                path = os.path.join(root, name)
+                with open(path, 'rb') as f:
+                    _, w, c, raw = parse(f.read(), path)
+                for t in raw[::w * c + 1]:
+                    counts[t] += 1
+    return dict(zip(('none', 'sub', 'up', 'average', 'paeth'), counts))
+
+
+def check_restored(restored, saved):
+    """Raises unless a restored train state equals the one that was saved,
+    bit for bit: weights and buffers, the EMA, every optimizer's moments,
+    the ADA controller and the step."""
     import torch
-    saved = torch.load(path, map_location='cpu', weights_only=True,
-                       mmap=True)
 
     def same(a, b, what):
-        if not torch.equal(a.detach().cpu(), b):
-            raise AssertionError(f'restored {what} differs from {path}')
-    for k, v in state.model.state_dict().items():
-        same(v, saved['model'][k], k)
-    for k, v in state.ema.state_dict().items():
-        same(v, saved['ema'][k], f'ema {k}')
-    opts = (state.opt_local_g + state.opt_local_d
-            + [state.opt_global_g, state.opt_global_d, state.opt_renderer])
-    saved_opts = (saved['opt_local_g'] + saved['opt_local_d']
-                  + [saved['opt_global_g'], saved['opt_global_d'],
-                     saved['opt_renderer']])
+        if not torch.equal(a, b):
+            raise AssertionError(f'restored {what} differs from the saved')
+    saved_model = saved.model.state_dict()
+    for k, v in restored.model.state_dict().items():
+        same(v, saved_model[k], k)
+    saved_ema = saved.ema.state_dict()
+    for k, v in restored.ema.state_dict().items():
+        same(v, saved_ema[k], f'ema {k}')
+
+    def optimizers(st):
+        return st.opt_local_g + st.opt_local_d + [
+            st.opt_global_g, st.opt_global_d, st.opt_renderer]
     moments = 0
-    for i, (opt, sd) in enumerate(zip(opts, saved_opts)):
-        for p_id, st in opt.state_dict()['state'].items():
+    for i, (a, b) in enumerate(zip(optimizers(restored), optimizers(saved))):
+        sa, sb = a.state_dict()['state'], b.state_dict()['state']
+        if sa.keys() != sb.keys():
+            raise AssertionError(f'optimizer {i}: parameters {len(sa)} '
+                                 f'restored, {len(sb)} saved')
+        for p_id, st in sa.items():
             for k, v in st.items():
                 if torch.is_tensor(v):
-                    same(v, sd['state'][p_id][k], f'optimizer {i} {k}')
+                    same(v, sb[p_id][k], f'optimizer {i} {k}')
                     moments += v.numel()
     for k in ('aug_p', 'pl_mean', 'ada_sign_sum', 'ada_sign_count'):
-        same(getattr(state, k), saved[k], k)
-    if state.step != saved['step'] or state.step < 1:
-        raise AssertionError(f'restored step {state.step}, saved '
-                             f'{saved["step"]}')
-    log(f'  ok  restored state = saved: {len(state.model.state_dict())} '
-        f'tensors, EMA, {len(opts)} optimizers ({moments} moment and step '
-        f'entries), aug_p {[round(v, 6) for v in state.aug_p.tolist()]}, '
-        f'step {state.step}')
+        same(getattr(restored, k), getattr(saved, k), k)
+    if restored.step != saved.step or restored.step < 1:
+        raise AssertionError(f'restored step {restored.step}, saved '
+                             f'{saved.step}')
+    log(f'  ok  restored state = saved: {len(saved_model)} tensors, EMA, '
+        f'{len(optimizers(saved))} optimizers ({moments} moment and step '
+        f'entries), aug_p {[round(v, 6) for v in restored.aug_p.tolist()]}, '
+        f'step {restored.step}')
 
 
-def phase_loop(card, kernels, device='cuda', size=256, samples=LOOP_SAMPLES,
-               batch=LOOP_BATCH, batch_gpu=LOOP_BATCH_GPU, steps=LOOP_STEPS,
-               cli_args=(), workdir=None):
+def phase_loop(card, kernels):
     """The training CLI and loop at the reference's batch 32 on a synthetic
     dataset written in a temporary directory outside the repository (the
-    snapshots are several GB): the reader alone; ``cli/train_aio.main`` for
-    one step with ``--batch-gpu`` (files, exact launch counts of the
-    accumulated step and the EMA grid); ``training_loop`` for ``steps``
-    steps with and without ``--batch-gpu`` (images/s of steps 2 on, data
-    wait, peak memory; without accumulation "does not fit" is reported,
-    not raised); the CLI again from the first run's snapshot (the restored
-    state checked against the file); ``cli/generate`` from its EMA
-    snapshot."""
+    snapshots are several GB), its PNGs with adaptive row filters as PIL
+    writes them: the reader alone; ``cli/train_aio.main`` for one step with
+    ``--batch-gpu`` (files, exact launch counts of the accumulated step and
+    the EMA grid), its train-state snapshot restored and held to the state
+    the run returned; ``training_loop`` for ``LOOP_STEPS`` steps with and
+    without ``--batch-gpu`` (images/s of steps 2 on, data wait, peak
+    memory; without accumulation "does not fit" is reported, not raised);
+    the CLI again from the first run's snapshot; ``cli/generate`` from its
+    EMA snapshot; every snapshot's bytes and seconds from the runs' logs."""
     import dataclasses
-    import gc
     import shutil
     import tempfile
     import numpy as np
     import torch
     from montage_gan_tpu_torch.cli import generate, train_aio
-    from montage_gan_tpu_torch.data.dataset import DatasetAIO
     from montage_gan_tpu_torch.data.synthetic import \
         make_synthetic_layer_dataset
+    from montage_gan_tpu_torch.models.ensemble import MontageEnsemble
     from montage_gan_tpu_torch.training import loop_aio
+    from montage_gan_tpu_torch.training.train_step import MontageTrainer
     from montage_gan_tpu_torch.utils import checkpoint
     from montage_gan_tpu_torch.utils.png import read_png_rgba
 
-    on_card = torch.device(device).type == 'cuda'
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize()
-
-    tmp = tempfile.mkdtemp(prefix='mgt-loop-', dir=workdir)
-    rec = Recorder()
+    tmp = tempfile.mkdtemp(prefix='mgt-loop-')
     out = {}
     try:
         data = os.path.join(tmp, 'layers')
         t0 = time.perf_counter()
-        make_synthetic_layer_dataset(data, num_samples=samples, size=size)
-        dataset = DatasetAIO(data, conv_config_index=3)
-        free = shutil.disk_usage(tmp).free
-        log(f'[loop] dataset of {samples} samples x {dataset.num_layers} '
-            f'layers {size}x{size} written and its stats computed in '
-            f'{time.perf_counter() - t0:.1f} s; {free / 2**30:.1f} GiB free '
-            f'in {tmp}')
+        make_synthetic_layer_dataset(data, num_samples=LOOP_SAMPLES)
+        filters = row_filters(data)
+        base = ['--data', data, '--cfg', 'aio', '--batch', str(LOOP_BATCH),
+                '--aug', 'ada', '--augpipe', 'bgcfnc', '--run-once',
+                '--batch-gpu', str(LOOP_BATCH_GPU)]
+        argv = ['--outdir', os.path.join(tmp, 'runs'), *base]
+        kw = train_aio.setup_training_loop_kwargs(
+            train_aio.parse_options(argv))
+        dataset, hyper, cfg = kw.dataset, kw.hyper, kw.cfg
+        log(f'[loop] dataset of {LOOP_SAMPLES} samples x '
+            f'{dataset.num_layers} layers {dataset.resolution}x'
+            f'{dataset.resolution} written and its stats computed in '
+            f'{time.perf_counter() - t0:.1f} s; rows by PNG filter {filters}; '
+            f'{shutil.disk_usage(tmp).free / 2**30:.1f} GiB free in {tmp}')
+        if not (filters['up'] and filters['paeth']):
+            raise AssertionError(f'the dataset\'s PNGs hold rows {filters}, '
+                                 'not the Up and Paeth rows of PIL\'s')
+        out['row_filters'] = filters
 
-        # 1. the reader alone: batches of `batch` in turn after the first
-        pf = loop_aio.BatchPrefetcher(dataset, batch, dataset.layer_targets,
-                                      depth=1, pin_memory=on_card)
+        # 1. the reader alone: batches of LOOP_BATCH in turn after the first
+        pf = loop_aio.BatchPrefetcher(dataset, LOOP_BATCH,
+                                      dataset.layer_targets, depth=1,
+                                      pin_memory=True)
         try:
             pf.next()
             n = 8
             t0 = time.perf_counter()
             for _ in range(n):
                 pf.next()
-            reader = n * batch / (time.perf_counter() - t0)
+            reader = n * LOOP_BATCH / (time.perf_counter() - t0)
         finally:
             pf.stop()
         out['reader_samples_per_s'] = reader
-        log(f'  reader: {reader:.1f} samples/s at batch {batch} (PNG decode '
-            f'on {loop_aio.DECODE_THREADS} threads, crops, pinned uint8)')
-
-        base = ['--data', data, '--cfg', 'aio', '--batch', str(batch),
-                '--aug', 'ada', '--augpipe', 'bgcfnc', '--run-once',
-                '--device', device, *cli_args]
-        rec.wrap(checkpoint, 'save_train_state', lambda out, *a: out)
-        rec.wrap(checkpoint, 'save_ema_snapshot', lambda out, *a: a[0])
-        captured = {}
-        cli_loop = train_aio.training_loop
-
-        def capture(**kw):
-            captured.update(kw, state=cli_loop(**kw))
-            return captured['state']
-        train_aio.training_loop = capture
+        log(f'  reader: {reader:.1f} samples/s at batch {LOOP_BATCH} (PNG '
+            f'decode on {loop_aio.DECODE_THREADS} threads, crops, pinned '
+            f'uint8)  card: {card}')
 
         # 2. the CLI, one step with accumulation
         for k in kernels.values():
             k.reset()
         t0 = time.perf_counter()
-        try:
-            train_aio.main(['--outdir', os.path.join(tmp, 'runs'), *base,
-                            '--batch-gpu', str(batch_gpu)])
-        finally:
-            train_aio.training_loop = cli_loop
-        sync()
+        state = train_aio.main(argv)
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: k.launches for name, k in kernels.items()}
-        run_dir, hyper, cfg = (captured[k] for k in ('run_dir', 'hyper',
-                                                     'cfg'))
-        expect = expected_train_launches(captured['state'].model, hyper, 1)
+        expect = expected_train_launches(state.model, hyper, 1)
         # the EMA grid of the tick: one sampling call of 32
-        for name, n in expected_launches(captured['state'].ema).items():
+        for name, n in expected_launches(state.ema).items():
             expect[name] += n
-        captured.clear()
-        log(f'[loop] cli/train_aio --batch {batch} --batch-gpu {batch_gpu} '
-            f'--run-once: {wall:.1f} s ({hyper.accum_rounds} local and '
-            f'{hyper.global_accum_rounds} global rounds)')
+        log(f'[loop] cli/train_aio --batch {LOOP_BATCH} --batch-gpu '
+            f'{LOOP_BATCH_GPU} --run-once: {wall:.1f} s '
+            f'({hyper.accum_rounds} local and {hyper.global_accum_rounds} '
+            'global rounds)')
         log(f'  launches {launches}, expected {expect} (step 0 and the EMA '
-            f'grid of {min(32, batch)})')
+            f'grid of {min(32, LOOP_BATCH)})')
         for name, n in launches.items():
             if n == 0 or n != expect[name]:
                 raise AssertionError(f'{name}: {n} launches in the CLI run, '
                                      f'expected {expect[name]}')
-        records = check_run_dir(run_dir)
-        log(f'  ok  {run_dir}: options, log, {len(records)} stats record(s) '
-            f'({len(records[0])} names, finite), grids, snapshots')
-        snapshot = os.path.join(run_dir, 'network-snapshot-000000.pt')
-        ema_snapshot = os.path.join(run_dir, 'ema-snapshot-000000.pt')
+        records = check_run_dir(kw.run_dir)
+        log(f'  ok  {kw.run_dir}: options, log, {len(records)} stats '
+            f'record(s) ({len(records[0])} names, finite), grids, snapshots')
+        snapshot = os.path.join(kw.run_dir, 'network-snapshot-000000.pt')
+        ema_snapshot = os.path.join(kw.run_dir, 'ema-snapshot-000000.pt')
 
-        # 3. training_loop alone, `steps` steps in 2-step ticks
+        # the snapshot restored into a fresh trainer equals the state the
+        # run saved and returned
+        trainer = MontageTrainer(MontageEnsemble(cfg, with_d=True), hyper,
+                                 device='cuda')
+        check_restored(checkpoint.restore_train_state(snapshot, trainer),
+                       state)
+        saved_step = state.step
+        del trainer, state
+        gc.collect()
+
+        # 3. training_loop alone, LOOP_STEPS steps in 2-step ticks
         def loop(microbatch, name):
             h = dataclasses.replace(hyper, microbatch=microbatch)
-            d = os.path.join(tmp, name)
             gc.collect()
-            if on_card:
-                torch.cuda.empty_cache()
-                torch.cuda.reset_peak_memory_stats()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
             for k in kernels.values():
                 k.reset()
+            d = os.path.join(tmp, name)
             try:
                 st = loop_aio.training_loop(
                     d, dataset, cfg=cfg, hyper=h,
-                    total_kimg=steps * batch / 1000,
-                    kimg_per_tick=2 * batch / 1000,
-                    image_snapshot_ticks=None, network_snapshot_ticks=None,
-                    device=device)
+                    total_kimg=LOOP_STEPS * LOOP_BATCH / 1000,
+                    kimg_per_tick=2 * LOOP_BATCH / 1000,
+                    image_snapshot_ticks=None, network_snapshot_ticks=None)
             except torch.cuda.OutOfMemoryError as e:
-                peak = torch.cuda.max_memory_allocated() if on_card else 0
-                log(f'  batch {batch} without --batch-gpu does not fit: '
+                log(f'  batch {LOOP_BATCH} without --batch-gpu does not fit: '
                     f'{str(e).splitlines()[0][:160]}; peak '
-                    f'{peak / 2**30:.2f} GiB  card: {card}')
+                    f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  '
+                    f'card: {card}')
                 return None
-            peak = torch.cuda.max_memory_allocated() if on_card else 0
+            peak = torch.cuda.max_memory_allocated()
             got = {k: v.launches for k, v in kernels.items()}
-            want = expected_train_launches(st.model, h, steps)
+            want = expected_train_launches(st.model, h, LOOP_STEPS)
             if got != want:
                 raise AssertionError(f'{name}: launches {got}, expected '
                                      f'{want}')
@@ -1646,59 +1645,66 @@ def phase_loop(card, kernels, device='cuda', size=256, samples=LOOP_SAMPLES,
             fetch = (sum(r['Timing/data_fetch']['mean']
                          * r['Timing/data_fetch']['num'] for r in recs)
                      / sum(r['Timing/data_fetch']['num'] for r in recs))
-            ips = (steps - 1) * batch / secs
-            log(f'  {name}: {steps} steps, ticks of '
+            ips = (LOOP_STEPS - 1) * LOOP_BATCH / secs
+            log(f'  {name}: {LOOP_STEPS} steps, ticks of '
                 f'{[r["Timing/data_fetch"]["num"] for r in recs]} steps; steps '
-                f'2-{steps}: {ips:.2f} images/s; data wait '
+                f'2-{LOOP_STEPS}: {ips:.2f} images/s; data wait '
                 f'{fetch * 1e3:.1f} ms a step; peak memory '
                 f'{peak / 2**30:.2f} GiB; launches as expected  card: {card}')
             return dict(images_per_s=ips, data_fetch_s=fetch,
                         peak_gib=peak / 2**30)
 
-        log(f'[loop] training_loop, batch {batch}, {steps} steps in 2-step '
-            'ticks')
-        out['accumulated'] = loop(batch_gpu, f'batch-gpu-{batch_gpu}')
+        log(f'[loop] training_loop, batch {LOOP_BATCH}, {LOOP_STEPS} steps '
+            'in 2-step ticks')
+        out['accumulated'] = loop(LOOP_BATCH_GPU,
+                                  f'batch-gpu-{LOOP_BATCH_GPU}')
         out['whole_batch'] = loop(None, 'whole-batch')
         gc.collect()
-        if on_card:
-            torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
         ratio = reader / out['accumulated']['images_per_s']
         log(f'  reader {reader:.1f} samples/s = {ratio:.1f}x the loop\'s '
-            f'images/s with --batch-gpu {batch_gpu}')
+            f'images/s with --batch-gpu {LOOP_BATCH_GPU}')
         if ratio < 5:
             raise AssertionError(f'the reader feeds only {ratio:.1f}x the '
                                  'loop\'s images/s')
 
-        # 4. resume from the first run's snapshot; the restored state is
-        # checked against the file before the step
-        rec.wrap(checkpoint, 'restore_train_state', lambda out, *a: a[0],
-                 after=check_restored)
-        train_aio.main(['--outdir', os.path.join(tmp, 'resumed'), *base,
-                        '--batch-gpu', str(batch_gpu), '--resume', snapshot])
-        sync()
-        log('[loop] cli/train_aio --resume: one more step from the snapshot')
+        # 4. the CLI again from the first run's snapshot, one more step
+        resumed = os.path.join(tmp, 'resumed')
+        state = train_aio.main(['--outdir', resumed, *base,
+                                '--resume', snapshot])
+        torch.cuda.synchronize()
+        resumed_dir = os.path.join(resumed, os.listdir(resumed)[0])
+        read = [s for s in snapshot_lines(resumed_dir) if s[0] == 'Restored']
+        if state.step != saved_step + 1 or [s[1] for s in read] != [snapshot]:
+            raise AssertionError(f'--resume: step {state.step} after '
+                                 f'restoring {read}, saved step {saved_step}')
+        del state
+        gc.collect()
+        log(f'[loop] cli/train_aio --resume: restored step {saved_step}, '
+            f'one more step to {saved_step + 1}')
 
         # 5. sampling from the first run's EMA snapshot
         gen_dir = os.path.join(tmp, 'generated')
         generate.main(['--network', ema_snapshot, '--seeds', '0-7',
-                       '--outdir', gen_dir, '--device', device])
+                       '--outdir', gen_dir])
         pngs = sorted(f for f in os.listdir(gen_dir) if f.endswith('.png'))
         imgs = [read_png_rgba(os.path.join(gen_dir, f)) for f in pngs]
-        if len(pngs) != 8 or any(i.shape != (size, size, 4) for i in imgs):
+        res = dataset.resolution
+        if len(pngs) != 8 or any(i.shape != (res, res, 4) for i in imgs):
             raise AssertionError(f'generate wrote {pngs}')
         log(f'  ok  cli/generate from {os.path.basename(ema_snapshot)}: 8 '
-            f'seeds, {len(pngs)} PNGs of {size}x{size}, mean alpha '
+            f'seeds, {len(pngs)} PNGs of {res}x{res}, mean alpha '
             f'{np.mean([i[..., 3].mean() / 255 for i in imgs]):.3f}')
 
-        # 6. the snapshots
-        for name, path, size_b, sec in rec.snapshots:
-            log(f'  {name} {os.path.relpath(path, tmp)}: {size_b} bytes in '
-                f'{sec:.2f} s')
+        # 6. the snapshots, as the runs' logs report them
+        snapshots = [(what, os.path.relpath(path, tmp), n, sec)
+                     for run_dir in (kw.run_dir, resumed_dir)
+                     for what, path, n, sec in snapshot_lines(run_dir)]
+        for what, path, n, sec in snapshots:
+            log(f'  {what} {path}: {n} bytes in {sec:.2f} s  card: {card}')
         out['launches'] = launches
-        out['snapshots'] = [(name, os.path.basename(path), size_b, sec)
-                            for name, path, size_b, sec in rec.snapshots]
+        out['snapshots'] = snapshots
     finally:
-        rec.undo()
         shutil.rmtree(tmp, ignore_errors=True)
     return out
 

@@ -186,12 +186,12 @@ def _check_waiting(opts: EasyDict) -> None:
                                   f'ROADMAP {WAITING["--metrics"]}')
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
-    """Train MontageGAN all-in-one."""
-    opts = EasyDict(vars(make_parser().parse_args(argv)))
-    _check_waiting(opts)
+def setup_training_loop_kwargs(opts: EasyDict) -> EasyDict:
+    """The keyword arguments of ``training_loop`` for parsed options: the
+    dataset, the run directory (the next free id under ``--outdir``), the
+    ensemble config and the ``TrainHyper``.  Without the global phases the
+    renderer is bypassed and not trained, in ``opts`` too."""
     n_dev = 1
-
     dataset = DatasetAIO(opts.data, xflip=opts.mirror,
                          conv_config_index=opts.conv_config_index)
     res = dataset.resolution
@@ -248,36 +248,49 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if opts.mirror:
         desc += '-mirror'
     desc += resume_desc
-    run_dir = next_run_dir(opts.outdir, desc)
+    return EasyDict(
+        run_dir=next_run_dir(opts.outdir, desc), dataset=dataset, cfg=cfg,
+        hyper=hyper, total_kimg=opts.kimg or spec.kimg,
+        kimg_per_tick=opts.kimg_per_tick,
+        image_snapshot_ticks=opts.img_snap,
+        network_snapshot_ticks=opts.net_snap, random_seed=opts.seed,
+        resume_path=resume_path, num_devices=opts.num_devices,
+        run_once=opts.run_once, save_all_layers=opts.save_all_layers,
+        run_latent_interpolation=opts.run_latent_interpolation,
+        trace_dir=opts.trace_dir, device=opts.device)
 
-    print(json.dumps({'run_dir': run_dir, 'batch': batch,
-                      'devices': n_dev, 'resolution': res,
-                      'layers': dataset.layer_names}, indent=2))
+
+def parse_options(argv: Optional[Sequence[str]] = None) -> EasyDict:
+    """The command line as options; flags that wait for another part of
+    the port raise."""
+    opts = EasyDict(vars(make_parser().parse_args(argv)))
+    _check_waiting(opts)
+    return opts
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Train MontageGAN all-in-one; returns the final train state (None for
+    a dry run)."""
+    opts = parse_options(argv)
+    kwargs = setup_training_loop_kwargs(opts)
+    print(json.dumps({'run_dir': kwargs.run_dir,
+                      'batch': kwargs.hyper.batch_size, 'devices': 1,
+                      'resolution': kwargs.dataset.resolution,
+                      'layers': kwargs.dataset.layer_names}, indent=2))
     if opts.dry_run:
         print('Dry run; exiting.')
-        return
+        return None
 
     training_device(opts.device)          # no card: raise, no fallback
-    os.makedirs(run_dir, exist_ok=True)
-    logger = Logger(os.path.join(run_dir, 'log.txt'))
-    with open(os.path.join(run_dir, 'training_options.json'), 'w') as f:
+    os.makedirs(kwargs.run_dir, exist_ok=True)
+    logger = Logger(os.path.join(kwargs.run_dir, 'log.txt'))
+    with open(os.path.join(kwargs.run_dir, 'training_options.json'),
+              'w') as f:
         json.dump({k: (v if isinstance(v, (int, float, bool, str,
                                            type(None))) else str(v))
                    for k, v in opts.items()}, f, indent=2)
-
     try:
-        training_loop(
-            run_dir=run_dir, dataset=dataset, cfg=cfg, hyper=hyper,
-            total_kimg=opts.kimg or spec.kimg,
-            kimg_per_tick=opts.kimg_per_tick,
-            image_snapshot_ticks=opts.img_snap,
-            network_snapshot_ticks=opts.net_snap,
-            random_seed=opts.seed, resume_path=resume_path,
-            num_devices=opts.num_devices,
-            run_once=opts.run_once,
-            save_all_layers=opts.save_all_layers,
-            run_latent_interpolation=opts.run_latent_interpolation,
-            trace_dir=opts.trace_dir, device=opts.device)
+        return training_loop(**kwargs)
     finally:
         logger.close()
 

@@ -256,8 +256,8 @@ def training_loop(
         print(f'Resuming from "{resume_path}"')
         t0 = time.time()
         state = ckpt.restore_train_state(resume_path, trainer)
-        print(f'Restored {os.path.getsize(resume_path)} bytes in '
-              f'{time.time() - t0:.2f} s')
+        print(f'Restored {resume_path}: {os.path.getsize(resume_path)} '
+              f'bytes in {time.time() - t0:.2f} s')
     else:
         state = trainer.init_state(random_seed)
     print(ensemble_summary(ens, layer_names=cfg.layer_names))

@@ -94,7 +94,11 @@ def restore_train_state(path: str, trainer):
         raise ValueError(f'{path}: a JAX train state; its optax moments do '
                          'not carry over to the port (ROADMAP queue 1, item '
                          '7). Resume from a port snapshot (.pt)')
-    ckpt = torch.load(path, map_location=trainer.device, weights_only=True)
+    # Read on the host: each load_state_dict below moves what it takes to
+    # the trainer's device, as a fresh run has it (Adam keeps its step
+    # count on the host; one on the card would sync at every update).
+    ckpt = torch.load(path, map_location='cpu', weights_only=True,
+                      mmap=True)
     cfg = MontageConfig.from_dict(ckpt['config'])
     if cfg != trainer.ens.cfg:
         raise ValueError(f'{path}: the snapshot\'s config {cfg} is not the '

@@ -41,6 +41,8 @@ from montage_gan_tpu_torch.utils import grid as tgrid
 from montage_gan_tpu_torch.utils import png
 from montage_gan_tpu_torch.utils.image_utils import alpha_composite_np
 
+import chip_smoke
+
 jcalc = importlib.import_module('montage_gan_tpu.utils.calc_res')
 SPEC = (('#1_a', (8, 7), (5, 6)), ('#2_b', (8, 10), (6, 4)),
         ('#3_c', (16, 20), (9, 5)))
@@ -173,8 +175,15 @@ def test_png_reader_rejects_bad_filter_and_length(tmp_path):
 # Dataset, writer, sampler, prefetcher
 # ---------------------------------------------------------------------------
 
+def _row_filter_types(path):
+    with open(path, 'rb') as f:
+        h, w, c, raw = png.parse(f.read(), path)
+    return np.frombuffer(raw, np.uint8)[::w * c + 1]
+
+
 def test_synthetic_writer_matches_jax(pil_dataset, tmp_path):
-    """The port's writer gives PIL's pixels, layer for layer."""
+    """The port's writer gives PIL's pixels, layer for layer, and chooses
+    PIL's row filters, row for row."""
     path = str(tmp_path / 'layers')
     port_make_dataset(path, num_samples=6, size=32, spec=SPEC, seed=3)
     assert sorted(os.listdir(path)) == sorted(os.listdir(pil_dataset))
@@ -185,6 +194,12 @@ def test_synthetic_writer_matches_jax(pil_dataset, tmp_path):
             ours = np.asarray(Image.open(os.path.join(path, d, f)))
             np.testing.assert_array_equal(
                 ours, np.asarray(Image.open(os.path.join(pil_dataset, d, f))))
+            np.testing.assert_array_equal(
+                _row_filter_types(os.path.join(path, d, f)),
+                _row_filter_types(os.path.join(pil_dataset, d, f)))
+    counts = chip_smoke.row_filters(path)
+    assert counts == chip_smoke.row_filters(pil_dataset)
+    assert counts['up'] and counts['paeth'], counts
 
 
 @pytest.mark.parametrize('conv_config_index', [2, 3])

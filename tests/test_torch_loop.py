@@ -3,14 +3,15 @@ against the JAX package's ``accum_value_and_grad``, train-state snapshots,
 and the ``train_aio`` CLI end to end (files, stats, resume, dry run, the
 flags it accepts or refuses, the launches of an accumulated step).
 
-Accumulation runs 2 rounds of the local Dmain phase (the micro ensemble of
-``test_torch_train``) and of global Dmain (that of ``test_torch_global``),
-both with style mixing off, no augment pipe (its draws at p = 0 change
-nothing; the step tests hold the pipe) and the fixed synthesis noise of
-``test_torch_train``; z is an input of both.  The summed
-gradients are held per tensor within 1e-3 of the tensor's largest JAX
-gradient and the averaged stats within rtol 1e-4, as in
-``test_torch_train``; ``sign_real`` exactly; ``w_avg`` within 1e-6.
+Accumulation runs 2 rounds of local Dmain with the ADA pipe at p = 0.5 and
+of local Greg (the micro ensemble of ``test_torch_train``), each round with
+the draws of its JAX round key, and of global Dmain (that of
+``test_torch_global``) without the pipe; style mixing is off and the
+synthesis noise is ``test_torch_train``'s fixed field; z is an input.  The
+summed gradients are held per tensor within 1e-3 of the tensor's largest
+JAX gradient and the averaged stats within rtol 1e-4, as in
+``test_torch_train``; ``sign_real`` exactly; ``pl_mean`` within rtol 1e-4;
+``w_avg`` within 1e-6.
 
 The CLI runs on the JAX CLI test's tiny dataset and arguments
 (``tests/test_train_aio_cli.py``), with ``--device cpu``.
@@ -31,6 +32,7 @@ import torch
 from montage_gan_tpu.cli import train_aio as jcli
 from montage_gan_tpu.data.synthetic import \
     make_synthetic_layer_dataset as jax_make_dataset
+from montage_gan_tpu.training import augment as jaug
 from montage_gan_tpu.training import losses as jlosses
 from montage_gan_tpu.training import train_step as jtrain
 from montage_gan_tpu_torch.cli import train_aio
@@ -48,8 +50,8 @@ from test_torch_global import MICRO_GLOBAL, jax_micro_global
 from test_torch_global import port_ensemble as port_ensemble_global
 from test_torch_grads import emulate_kernels
 from test_torch_train import (FAST_COMPILE, InjectedDraws, _assert_grads,
-                              _np, inject_jax_synthesis_noise, jax_micro,
-                              port_ensemble)
+                              _g_grads_jax, _np, inject_jax_synthesis_noise,
+                              jax_micro, port_ensemble)
 
 torch.set_num_threads(1)
 
@@ -67,57 +69,156 @@ def _check_aux(aux, jaux, tens):
     for k, v in aux['stats'].items():
         np.testing.assert_allclose(float(v), float(jaux['stats'][k]),
                                    rtol=1e-4, atol=1e-6, err_msg=k)
-    assert float(aux['sign_real']) == float(jaux['sign_real'])
+    if 'sign_real' in jaux:
+        assert float(aux['sign_real']) == float(jaux['sign_real'])
     np.testing.assert_allclose(
         tens.mapping.w_avg.numpy(),
         np.asarray(jaux['moving_stats']['w_avg']), rtol=0, atol=1e-6)
 
 
-def test_accumulated_local_dmain_matches_jax(monkeypatch):
+class PerRoundDraws(InjectedDraws):
+    """``InjectedDraws`` whose augment pipe draws are JAX's: the pipe of
+    round ``r`` takes ``per_round`` draws, the ``i``-th from
+    ``fold_in(aug_keys[r], i)`` (the JAX pipe's key stream), uniform or
+    normal as the port asks."""
+
+    def __init__(self, aug_keys=(), per_round=0, **kw):
+        super().__init__(**kw)
+        self.aug_keys, self.per_round, self.taken = aug_keys, per_round, 0
+
+    def _augment(self, fn, shape):
+        r, i = divmod(self.taken, self.per_round)
+        self.taken += 1
+        return torch.from_numpy(np.array(
+            fn(jax.random.fold_in(self.aug_keys[r], i), tuple(shape))))
+
+    def normal(self, shape, kind):
+        if kind == 'augment':
+            return self._augment(jax.random.normal, shape)
+        return super().normal(shape, kind)
+
+    def uniform(self, shape, kind):
+        if kind == 'augment':
+            return self._augment(jax.random.uniform, shape)
+        return super().uniform(shape, kind)
+
+
+class CountingDraws(Draws):
+    def __init__(self):
+        super().__init__(torch.Generator().manual_seed(0))
+        self.count = 0
+
+    def normal(self, shape, kind):
+        self.count += 1
+        return super().normal(shape, kind)
+
+    def uniform(self, shape, kind):
+        self.count += 1
+        return super().uniform(shape, kind)
+
+
+def _check_accumulated_local(phase, monkeypatch):
+    """2 rounds of a local phase that draws, held to JAX's
+    ``accum_value_and_grad``.  Round ``r`` of the port gets the draws of
+    JAX's round key ``split(key, 2)[r]``: the augment pipe's key stream of
+    ``split(round key, 3)[1]``, the path-length noise of
+    ``split(round key, 3)[2]``."""
     layer = 1
     cfg, ens, variables, np_tree = jax_micro()
     tens = port_ensemble(np_tree)
     inject_jax_synthesis_noise(monkeypatch)
-    rng = np.random.RandomState(21)
+    rng = np.random.RandomState(23)
     z = rng.randn(BATCH, cfg.z_dim).astype(np.float32)
     th, tw = cfg.layer_targets[layer]
-    real = rng.uniform(-1, 1, (BATCH, th, tw, 4)).astype(np.float32)
-    aug_j = aug_t = None
+    key = jax.random.PRNGKey(8)
+    round_keys = [jax.random.split(k, 3)
+                  for k in jax.random.split(key, ROUNDS)]
     mvars, gvars = variables['mapping'], variables['local_g'][layer]
     dvars = variables['local_d'][layer]
+    mb = BATCH // ROUNDS
 
-    def jloss(d, data, key):
-        z_mb, real_mb = data
-        return jlosses.local_dmain_loss(
-            {**dvars, 'params': d}, ens, layer, {'mapping': mvars,
-                                                 'g': gvars},
-            z_mb, real_mb, key, aug_j, jnp.float32(0.0),
-            style_mixing_prob=0.0)
-    (_, jaux), dg = jax.jit(
-        lambda d, data, key: jtrain.accum_value_and_grad(jloss, d, data, key,
-                                                         ROUNDS),
+    if phase == 'dmain':
+        p = 0.5
+        real = rng.uniform(-1, 1, (BATCH, th, tw, 4)).astype(np.float32)
+        aug_j, aug_t = (m.make_augment_config('bgc') for m in (jaug, taug))
+        counting = CountingDraws()
+        taug.augment_pipe(torch.zeros(2 * mb, th, tw, 4), p, aug_t, counting)
+        draws = PerRoundDraws([k[1] for k in round_keys], counting.count)
+
+        def jloss(d, data, k):
+            z_mb, real_mb = data
+            return jlosses.local_dmain_loss(
+                {**dvars, 'params': d}, ens, layer,
+                {'mapping': mvars, 'g': gvars}, z_mb, real_mb, k, aug_j,
+                jnp.float32(p), style_mixing_prob=0.0)
+        jparams, data = dvars['params'], (z, real)
+
+        def loss(z_mb, real_mb):
+            loss, st, sign = tlosses.local_dmain_loss(
+                tens, layer, z_mb, real_mb, draws, aug_t, p,
+                style_mixing_prob=0.0)
+            return loss, {'stats': st, 'sign_real': sign}
+        named = [(f'local_d.{layer}.{k}', v)
+                 for k, v in tens.local_d[layer].named_parameters()]
+    else:
+        pl_mean = 0.3
+        pl = [jax.random.normal(k[2], (mb // 2, th, tw, 4))
+              for k in round_keys]
+        draws = PerRoundDraws(pl_noise=pl)
+
+        def jloss(params, data, k):
+            m, g = params
+            return jlosses.local_gpl_loss(
+                {'mapping': {**mvars, 'params': m},
+                 'g': {**gvars, 'params': g}}, ens, layer, data[0], k,
+                jnp.float32(pl_mean), style_mixing_prob=0.0)
+        jparams, data = (mvars['params'], gvars['params']), (z,)
+
+        def loss(z_mb):
+            loss, pl_i, st = tlosses.local_gpl_loss(
+                tens, layer, z_mb, draws, torch.tensor(pl_mean),
+                style_mixing_prob=0.0)
+            return loss, {'stats': st, 'pl_mean': pl_i}
+        named = [(f'mapping.{k}', v)
+                 for k, v in tens.mapping.named_parameters()] + [
+            (f'local_g.{layer}.{k}', v)
+            for k, v in tens.local_g[layer].named_parameters()]
+
+    (_, jaux), jgrads = jax.jit(
+        lambda prm, d, k: jtrain.accum_value_and_grad(jloss, prm, d, k,
+                                                      ROUNDS),
         compiler_options=FAST_COMPILE)(
-        dvars['params'], (jnp.asarray(z), jnp.asarray(real)),
-        jax.random.PRNGKey(5))
-
-    draws = InjectedDraws()
-
-    def dmain(z_mb, real_mb):
-        loss, st, sign = tlosses.local_dmain_loss(
-            tens, layer, z_mb, real_mb, draws, aug_t, 0.0,
-            style_mixing_prob=0.0)
-        return loss, {'stats': st, 'sign_real': sign}
-    params = list(tens.local_d[layer].parameters())
+        jparams, tuple(jnp.asarray(x) for x in data), key)
     aux, grads = ttrain.accum_value_and_grad(
-        dmain, params, (torch.from_numpy(z), torch.from_numpy(real)), ROUNDS,
-        tens.mapping.w_avg)
+        loss, [v for _, v in named], tuple(torch.from_numpy(x) for x in data),
+        ROUNDS, tens.mapping.w_avg)
     _check_aux(aux, jaux, tens)
-    names = [k for k, _ in tens.local_d[layer].named_parameters()]
-    port = {k: torch.zeros_like(p) if g is None else g
-            for k, p, g in zip(names, params, grads)}
-    ref = weights.discriminator_state_dict(_np({'params': dg}),
-                                           tens.cfg.layer_geometry(layer)[0])
+    port = {k: torch.zeros_like(v) if g is None else g
+            for (k, v), g in zip(named, grads)}
+    if phase == 'dmain':
+        assert draws.taken == ROUNDS * draws.per_round
+        ref = {f'local_d.{layer}.{k}': v for k, v in
+               weights.discriminator_state_dict(
+                   _np({'params': jgrads}),
+                   tens.cfg.layer_geometry(layer)[0]).items()}
+    else:
+        assert not draws.queue['pl_noise']          # both rounds drew
+        np.testing.assert_allclose(float(aux['pl_mean']),
+                                   float(jaux['pl_mean']), rtol=1e-4)
+        ref = _g_grads_jax(np_tree, layer, *jgrads)
     _assert_grads(port, {k: ref[k] for k in port})
+
+
+def test_accumulated_local_dmain_matches_jax(monkeypatch):
+    """Dmain with the ADA pipe ('bgc') at p = 0.5: both rounds augment,
+    each with its own round's draws."""
+    _check_accumulated_local('dmain', monkeypatch)
+
+
+def test_accumulated_local_greg_matches_jax(monkeypatch):
+    """Greg: each round draws its path-length noise; ``pl_mean`` is the
+    rounds' mean, held to JAX's."""
+    _check_accumulated_local('greg', monkeypatch)
 
 
 def test_accumulated_global_dmain_matches_jax(monkeypatch):
@@ -213,6 +314,7 @@ def test_restored_train_state_steps_bit_identically(tmp_path):
 
     restored_trainer = _trainer(hyper)
     restored = tckpt.restore_train_state(path, restored_trainer)
+    chip_smoke.check_restored(restored, state)
     stack, crops = _batch(cfg, 2)
     outs = []
     for tr, st in ((trainer, state), (restored_trainer, restored)):
@@ -313,19 +415,19 @@ def test_train_aio_cli_end_to_end_and_resume(tiny_dataset, tmp_path,
         assert 'tick 0' in f.read()
 
     snapshot = os.path.join(run_dir, 'network-snapshot-000000.pt')
+    assert [s[:2] for s in chip_smoke.snapshot_lines(run_dir)] == [
+        ('Saved', snapshot),
+        ('Saved', os.path.join(run_dir, 'ema-snapshot-000000.pt'))]
     kernels = emulate_kernels(monkeypatch)
-    captured = {}
-    loop = train_aio.training_loop
-
-    def capture(**kw):
-        captured.update(kw, state=loop(**kw))
-        return captured['state']
-    monkeypatch.setattr(train_aio, 'training_loop', capture)
     resumed = str(tmp_path / 'resumed')
-    train_aio.main(['--outdir', resumed, '--data', tiny_dataset, *CLI_ARGS,
-                    '--resume', snapshot, '--batch-gpu', '2'])
-    state, hyper = captured['state'], captured['hyper']
+    argv = ['--outdir', resumed, '--data', tiny_dataset, *CLI_ARGS,
+            '--resume', snapshot, '--batch-gpu', '2']
+    hyper = train_aio.setup_training_loop_kwargs(
+        train_aio.parse_options(argv)).hyper
+    state = train_aio.main(argv)
     assert _run_dir(resumed).endswith('-resumecustom')
+    assert chip_smoke.snapshot_lines(_run_dir(resumed))[0][:2] == (
+        'Restored', snapshot)
     assert state.step == 2 and hyper.accum_rounds == 2
     assert hyper.ema_rampup is None and hyper.ada_kimg == 100
     # the resumed step is step 1 (no Greg, no R1): steps 0-1 less step 0
