@@ -71,9 +71,25 @@ Phases, in order; each raises on failure, and the script then exits non-zero:
    ``cli/generate`` for 8 seeds from the EMA snapshot; every snapshot's
    bytes and save and restore seconds, as the runs' ``log.txt`` report
    them.
+14. ddp: the data-parallel step (``tools/ddp_check.py::check_rank``) at
+   config ``aio`` on every visible card through an NCCL process group (on
+   one card: one rank, in this process, so every collective still runs),
+   8 images a rank: in float32 (the bf16 blocks round differently at
+   another batch size), 2 steps in 2 accumulation rounds, every
+   regularizer at step 0, learning rates 0 (so each phase reads the
+   initial weights): rank 0 first takes the step in one process at the
+   global batch, then with its weights moved by 1e-6 relative; each
+   phase's gradients, reduced over the ranks, are held to the first within
+   the larger of 1e-3 of the phase's largest entry and ten times the moved
+   step's spread, the step's losses within the larger of rtol 2e-3, atol
+   2e-4 and ten times theirs; each rank's launches of
+   K1'-K4' exactly; the ranks' train states identical
+   (``assert_replicated``); then config ``aio`` as it trains: a step
+   timed, and the NCCL kernels' time in one more, profiled step.
 
-Each main path (6, 8, 10, 11 and 13's CLI step and 6-step loops) is driven
-with every launch count set to 0 just before it and read just after.  The last two lines are the card's name and
+Each main path (6, 8, 10, 11, 13's CLI step and 6-step loops, and 14's
+steps) is driven with every launch count set to 0 just before it and read
+just after.  The last two lines are the card's name and
 power limit (from ``nvidia-smi``) and one JSON object, ``{"ok": true,
 "device": {...}}``; the line before them is ``{"kernels": [...]}``, and
 before it the loop's figures (``{"loop": ...}``) and the total seconds.
@@ -89,6 +105,9 @@ import statistics
 import sys
 import time
 
+from montage_gan_tpu_torch.tools.ddp_check import spread
+from montage_gan_tpu_torch.tools.launches import (expected_launches,
+                                                  expected_train_launches)
 from montage_gan_tpu_torch.tools.timing import (PEAK_BYTES, card_line, device_ms,
                                                 host_us)
 
@@ -659,129 +678,6 @@ def phase_grads(dev, card):
     return out
 
 
-def expected_launches(model):
-    """Launches one sampling call makes: one bias_act per FullyConnected,
-    SynthesisLayer and ToRGBLayer forward; one upfirdn2d (the ToRGB skip
-    upsample) per synthesis block above the first."""
-    from montage_gan_tpu_torch.models.layers import FullyConnected
-    from montage_gan_tpu_torch.models.synthesis import (SynthesisLayer,
-                                                        ToRGBLayer)
-    k1 = sum(isinstance(m, (FullyConnected, SynthesisLayer, ToRGBLayer))
-             for m in model.modules())
-    k2 = sum(len(net.block_resolutions) - 1 for net in model.local_g)
-    return {'bias_act': k1, 'upfirdn2d': k2}
-
-
-def expected_train_launches(model, hyper, steps):
-    """Launches of ``steps`` training steps from step 0, per kernel, from the
-    module structure.  Per local layer (G: S synthesis layers, T ToRGBs, A
-    style affines, B blocks; D: nD bias_act layers, Lb of them in the
-    blocks; M mapping FCs, twice with style mixing):
-
-    * K1' forward: one per bias_act a forward runs.  Gmain M + G + D;
-      Greg M + G; Dmain M + G + 2 D (fakes and reals apart); Dr1 D.
-    * K1' grad: one per backward of a bias_act whose activation is not the
-      identity (the affines and D's last FC are linear with gain 1, no
-      clamp: their backward is the identity; so are the ToRGBs' without
-      ``conv_clamp``, and T counts 0 in K1' grad).  Gmain: D (nD - 1), G (S + T),
-      M.  Greg: inner grad S + T; outer: each synthesis layer's order-1 node
-      (S) and forward node (S: the style gradient reads its output), and M.
-      The ToRGBs' inner nodes see the constant path-length noise and record
-      nothing.  Dmain: 2 (nD - 1).  Dr1: inner nD - 1, outer nD - 1 for the
-      order-1 nodes and Lb for the block layers' forward nodes (the
-      minibatch-std's gradient reads the blocks' output).
-    * K2' (forward and backward): B - 1 per G forward; Gmain's backward
-      B - 1; Greg's inner grad B - 1 (its outer pass reads none).
-    * K3': the augmented forward in Gmain (B), Dmain (2B) and Dr1, and the
-      backward of K4' in Dr1's outer pass.  K4': Gmain's backward and Dr1's
-      inner grad.
-
-    The renderer and global phases run every local G once per global
-    forward (all layers: M + G each, and B - 1 K2'), and the global D (nD,
-    Lb of its own) as a local D is run: the renderer phase one global
-    forward without gradients; global Gmain a global forward, the D, and
-    the backward of both (no renderer, STN or composite op launches a
-    kernel); global Dmain a global forward without gradients and the D on
-    fakes and reals, augmented together at 2B; global R1 the D's Dr1.  The
-    global pipe's warp runs as in the local phases.
-
-    With microbatch accumulation every round runs its phase's forward and
-    backward over its slice of the batch: the local phases' launches are
-    multiplied by ``hyper.accum_rounds``, the renderer's and the global
-    phases' by ``hyper.global_accum_rounds``."""
-    from montage_gan_tpu_torch.models.layers import (Conv2dLayer,
-                                                     FullyConnected)
-    from montage_gan_tpu_torch.models.synthesis import (SynthesisLayer,
-                                                        ToRGBLayer)
-
-    def count(module, kinds):
-        return sum(isinstance(m, kinds) for m in module.modules())
-
-    def d_counts(d):
-        return (count(d, (Conv2dLayer, FullyConnected)),
-                sum(count(b, Conv2dLayer) for b in d.blocks()))
-
-    def has_warp(aug):
-        return int(aug is not None and (aug.any_blit or aug.any_geom))
-
-    warp = has_warp(hyper.augment if not hyper.local_noaug else None)
-    gwarp = has_warp(hyper.augment if not hyper.global_noaug else None)
-    m = model.mapping.num_layers * (2 if hyper.style_mixing_prob > 0 else 1)
-    clamped = int(model.cfg.conv_clamp is not None)
-    g_fwd = g_grad = g_up = 0        # one global forward: all local Gs
-    for g in model.local_g:
-        s, t = count(g, SynthesisLayer), count(g, ToRGBLayer)
-        g_fwd += m + s + t + count(g, FullyConnected)
-        g_grad += m + s + t * clamped
-        g_up += len(g.block_resolutions) - 1
-    use_r = not hyper.bypass_renderer and model.renderer is not None
-    rounds, grounds = hyper.accum_rounds, hyper.global_accum_rounds
-    renderer = int(hyper.train_renderer and use_r) * grounds
-    glob = int(hyper.train_global and model.stn is not None)
-    out = dict.fromkeys(('bias_act', 'bias_act_grad', 'upfirdn2d',
-                         'warp_forward', 'warp_transpose'), 0)
-    for step in range(steps):
-        greg = int(hyper.g_reg_interval is not None and hyper.pl_weight != 0
-                   and step % hyper.g_reg_interval == 0)
-        dr1 = int(hyper.d_reg_interval is not None and hyper.r1_gamma != 0
-                  and step % hyper.d_reg_interval == 0)
-        for g, d in zip(model.local_g, model.local_d):
-            if not hyper.train_local:
-                break
-            s, t = count(g, SynthesisLayer), count(g, ToRGBLayer)
-            n_g = s + t + count(g, FullyConnected)
-            t_grad = t * clamped
-            blocks = len(g.block_resolutions)
-            n_d, lb = d_counts(d)
-            out['bias_act'] += rounds * ((m + n_g + n_d) + greg * (m + n_g)
-                                         + (m + n_g + 2 * n_d) + dr1 * n_d)
-            out['bias_act_grad'] += rounds * ((n_d - 1 + s + t_grad + m)
-                                              + greg * (3 * s + t_grad + m)
-                                              + 2 * (n_d - 1)
-                                              + dr1 * (2 * (n_d - 1) + lb))
-            out['upfirdn2d'] += rounds * (blocks - 1) * (2 + 2 * greg + 1)
-            out['warp_forward'] += rounds * warp * (2 + 2 * dr1)
-            out['warp_transpose'] += rounds * warp * (1 + dr1)
-        out['bias_act'] += renderer * g_fwd
-        out['upfirdn2d'] += renderer * g_up
-        if not glob:
-            continue
-        goi = hyper.global_optimize_interval
-        n_d, lb = d_counts(model.global_d)
-        main = int(step % goi == 0) * grounds
-        gr1 = int(hyper.d_reg_interval is not None
-                  and hyper.global_r1_gamma != 0
-                  and step % (hyper.d_reg_interval * goi) == 0) * grounds
-        out['bias_act'] += (main * ((g_fwd + n_d) + (g_fwd + 2 * n_d))
-                            + gr1 * n_d)
-        out['bias_act_grad'] += (main * ((n_d - 1 + g_grad) + 2 * (n_d - 1))
-                                 + gr1 * (2 * (n_d - 1) + lb))
-        out['upfirdn2d'] += main * 3 * g_up
-        out['warp_forward'] += gwarp * (2 * main + 2 * gr1)
-        out['warp_transpose'] += gwarp * (main + gr1)
-    return out
-
-
 def seed_z(seeds, z_dim):
     """z as the generate CLI draws it, one row per seed."""
     import numpy as np
@@ -1155,20 +1051,6 @@ def cpu_draws(seed, device):
     return CpuDraws(torch.Generator().manual_seed(seed))
 
 
-def spread(grads, ref_grads):
-    """(largest entry difference, worst tensor) over a phase's gradients,
-    relative to the phase's largest entry."""
-    import torch
-    # autograd gives None where the other path may give structural zeros
-    pairs = [(i, torch.zeros_like(r) if g is None else g,
-              torch.zeros_like(g) if r is None else r)
-             for i, (g, r) in enumerate(zip(grads, ref_grads))
-             if g is not None or r is not None]
-    scale = max(max(r.abs().max().item() for _, _, r in pairs), 1e-12)
-    errs = [((g - r).abs().max().item() / scale, i) for i, g, r in pairs]
-    return max(errs)
-
-
 def nudged_copy(model):
     """A copy of ``model`` with every weight moved by 1e-6 relative: the
     CPU against it gives the float32 spread of a phase's gradients."""
@@ -1407,6 +1289,46 @@ def phase_aio_cross_device(device='cuda'):
     nudged = nudged_copy(cpu)
     for phase in trained:
         check_phase(phase, run, cpu, card, nudged, device)
+
+
+def phase_ddp(card):
+    """The data-parallel step on every visible card (one rank in this
+    process where there is one card); raises where a check fails.  Returns
+    each rank's figures."""
+    import torch
+    from montage_gan_tpu_torch.parallel import distributed, mesh
+    from montage_gan_tpu_torch.tools import ddp_check
+    world = torch.cuda.device_count()
+    log(f'[ddp] {world} rank(s), NCCL, {ddp_check.PER_RANK} images a rank; '
+        f'config aio in float32, {ddp_check.STEPS} steps in 2 rounds, held '
+        'to one process at the global batch; then config aio timed and '
+        'profiled')
+    if world > 1:
+        ranks = ddp_check.run_ranks(world)
+    else:
+        distributed.maybe_initialize(f'localhost:{distributed.free_port()}',
+                                     1, 0, 0, device='cuda')
+        try:
+            ranks = [ddp_check.check_rank(
+                mesh.DataParallel.from_process_group('cuda'))]
+        finally:
+            distributed.shutdown()
+    r0 = ranks[0]
+    log(f'  ok  {r0["phases"]} phases\' gradients within their limits '
+        f'(nearest: {r0["worst_phase"]} {r0["worst_grad"]:.3g} of its '
+        f'largest entry, limit {r0["worst_grad_limit"]:.3g}; one process '
+        f'with weights moved {ddp_check.NUDGE}: up to {r0["floor_grad"]:.3g});'
+        f' {r0["losses"]} losses within theirs (nearest: {r0["worst_loss"]} '
+        f'{r0["worst_loss_err"]:.3g}, limit {r0["worst_loss_limit"]:.3g}); '
+        f'{r0["replicated"]} tensors replicated; launches '
+        f'{[r["launches"] for r in ranks]} as expected')
+    log(f'  config aio, a step without regularizer '
+        f'{r0["step_s"] * 1e3:.1f} ms; profiled step: NCCL '
+        f'{[round(r["nccl_ms"], 3) for r in ranks]} ms, '
+        f'{[r["nccl_launches"] for r in ranks]} launches, of '
+        f'{[round(r["kernel_ms"], 1) for r in ranks]} ms kernel time; peak '
+        f'{[round(r["peak_gib"], 2) for r in ranks]} GiB  card: {card}')
+    return ranks
 
 
 LOOP_BATCH = 32
@@ -1772,6 +1694,9 @@ def main():
     phase_aio_cross_device()
     gc.collect()
     torch.cuda.empty_cache()
+    ddp = phase_ddp(card)
+    gc.collect()
+    torch.cuda.empty_cache()
     loop = phase_loop(card, kernels)
 
     sources = {
@@ -1795,6 +1720,10 @@ def main():
         if name in ('bias_act', 'upfirdn2d', 'warp_forward',
                     'warp_transpose'):
             rows[-1]['launches_by_variant'] = variants[name]
+        if name in ddp[0]['launches']:
+            # the data-parallel steps, on each rank
+            rows[-1]['launches_ddp_by_rank'] = [r['launches'][name]
+                                                for r in ddp]
         if row_loop is not None:
             # the training CLI's one accumulated step at batch 32 (and its
             # EMA grid), checked against expected_train_launches
@@ -1820,6 +1749,9 @@ def main():
         'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': lib}
     log(json.dumps({'loop': {k: v for k, v in loop.items()
                              if k != 'launches'}, 'card': card}))
+    log(json.dumps({'ddp': [{k: v for k, v in r.items()
+                             if k not in ('expected', 'launches')}
+                            for r in ddp], 'card': card}))
     log(f'[total] {time.perf_counter() - START:.1f} s')
     log(json.dumps({'kernels': rows}))
     log(card_line())

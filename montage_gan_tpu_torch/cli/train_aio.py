@@ -6,13 +6,22 @@ of click and a ``--device`` flag (default ``cuda``; ``cpu`` runs the plain
 versions of the kernels):
 
     python -m montage_gan_tpu_torch.cli.train_aio --data DIR --outdir OUT \\
-        [--cfg aio] [--batch 32] [--batch-gpu 16] [--device cuda]
+        [--cfg aio] [--batch 32] [--batch-gpu 16] [--gpus N] [--device cuda]
 
 It writes ``training_options.json``, ``log.txt`` and what the loop writes
-(``training/loop_aio.py``) into ``OUT/{id:05d}-{dataset}-{cfg}``.  Flags
-that wait for another part of the port raise with the ROADMAP queue item
-they wait for (``WAITING``); the TPU's dispatch machinery has no
-counterpart (``NOT_PORTED``).
+(``training/loop_aio.py``) into ``OUT/{id:05d}-{dataset}-{cfg}``.
+
+Data parallelism, one process per card: ``--gpus N`` (default: every
+visible card; 1 with ``--device cpu``) spawns N ranks on this host, which
+train the global ``--batch`` at ``batch / N`` each (``--batch-gpu`` stays
+the global microbatch of a round, as in the JAX CLI); the kernels are built
+once before.  ``--coordinator HOST:PORT`` makes this process one rank of a
+run whose ranks are started separately, on one host or several: its rank,
+the world size and its card come from ``RANK``, ``WORLD_SIZE`` and
+``LOCAL_RANK`` (torchrun's names).  Only rank 0 writes files.  Flags that
+wait for another part of the port raise with the ROADMAP queue item they
+wait for (``WAITING``); the TPU's dispatch machinery has no counterpart
+(``NOT_PORTED``).
 """
 
 from __future__ import annotations
@@ -23,7 +32,10 @@ import os
 import re
 from typing import Optional, Sequence
 
+import torch
+
 from ..data.dataset import DatasetAIO
+from ..parallel import distributed
 from ..training.augment import AUGPIPE_SPECS, make_augment_config
 from ..training.loop_aio import (config_from_dataset, training_device,
                                  training_loop)
@@ -57,9 +69,7 @@ NOT_PORTED = {'--merge-locals': 'queue 1, item 8',
               '--no-precompile': 'the TPU phase executor (not ported)'}
 # Accepted flags whose values other than the default raise until the
 # queue item named here is ported.
-WAITING = {'--gpus': 'queue 1, item 4 (a value above 1)',
-           '--coordinator': 'queue 1, item 4',
-           '--metrics': 'queue 1, item 6 (a value other than none)',
+WAITING = {'--metrics': 'queue 1, item 6 (a value other than none)',
            '--renderer-import': 'queue 1, item 7',
            '--resume': 'queue 1, item 7 (an alias or a URL)'}
 # --resume aliases of the JAX package (utils/url_util.py:28-34)
@@ -121,7 +131,8 @@ def make_parser() -> argparse.ArgumentParser:
     add('--data', required=True, metavar='PATH',
         help='Directory-of-directories of layer PNGs')
     add('--gpus', dest='num_devices', type=int, default=None,
-        help='Devices to use (only 1 is ported)')
+        help='Ranks to spawn on this host, one per card (default: every '
+             'visible card; 1 with --device cpu)')
     add('--snap', dest='img_snap', type=int, default=1)
     add('--net-snap', type=int, default=50)
     add('--seed', type=int, default=0)
@@ -129,7 +140,7 @@ def make_parser() -> argparse.ArgumentParser:
     add('--mirror', type=_bool, default=False)
     add('--cfg', choices=list(CFG_SPECS), default='aio')
     add('--gamma', type=float, default=None)
-    add('--kimg', type=int, default=None)
+    add('--kimg', type=float, default=None)
     add('--batch', type=int, default=None)
     add('--aug', choices=['ada', 'noaug', 'fixed'], default='ada')
     add('--p', type=float, default=None)
@@ -155,7 +166,8 @@ def make_parser() -> argparse.ArgumentParser:
     add('--channel-base', type=int, default=None,
         help='Override channel_base (testing/small runs)')
     add('--channel-max', type=int, default=None)
-    add('--kimg-per-tick', type=int, default=4)
+    add('--kimg-per-tick', type=float, default=4,
+        help='Thousands of images a tick (a fraction: a few steps)')
     add('--batch-gpu', dest='batch_gpu', type=int, default=None,
         help='Microbatch per accumulation round for local phases '
              '(reference --batch-gpu)')
@@ -167,31 +179,52 @@ def make_parser() -> argparse.ArgumentParser:
     add('--save-all-layers', action='store_true', default=False)
     add('--run-latent-interpolation', action='store_true', default=False)
     add('--coordinator', default=None, metavar='HOST:PORT',
-        help='(not ported) multi-host coordinator')
+        help='Rendezvous of ranks started separately: this process is '
+             'rank RANK of WORLD_SIZE, on card LOCAL_RANK (environment)')
     add('--device', default='cuda',
         help="torch device to train on (default 'cuda')")
     return p
 
 
 def _check_waiting(opts: EasyDict) -> None:
-    if opts.num_devices is not None and opts.num_devices > 1:
-        raise NotImplementedError(f'--gpus {opts.num_devices}: '
-                                  f'ROADMAP {WAITING["--gpus"]}')
-    for flag, value in (('--coordinator', opts.coordinator),
-                        ('--renderer-import', opts.renderer_import)):
-        if value is not None:
-            raise NotImplementedError(f'{flag}: ROADMAP {WAITING[flag]}')
+    if opts.renderer_import is not None:
+        raise NotImplementedError(f'--renderer-import: ROADMAP '
+                                  f'{WAITING["--renderer-import"]}')
     if opts.metrics != 'none':
         raise NotImplementedError(f'--metrics {opts.metrics}: '
                                   f'ROADMAP {WAITING["--metrics"]}')
 
 
-def setup_training_loop_kwargs(opts: EasyDict) -> EasyDict:
-    """The keyword arguments of ``training_loop`` for parsed options: the
-    dataset, the run directory (the next free id under ``--outdir``), the
-    ensemble config and the ``TrainHyper``.  Without the global phases the
-    renderer is bypassed and not trained, in ``opts`` too."""
-    n_dev = 1
+def num_ranks(opts: EasyDict) -> int:
+    """The run's number of ranks: ``--gpus``, else every visible card (one
+    process on the CPU); with ``--coordinator``, ``WORLD_SIZE``."""
+    if opts.coordinator is not None:
+        if opts.num_devices not in (None, 1):
+            raise ValueError(f'--gpus {opts.num_devices} with --coordinator: '
+                             'start one process per card, each with its '
+                             'RANK, WORLD_SIZE and LOCAL_RANK')
+        if not (os.environ.get('WORLD_SIZE') and os.environ.get('RANK')):
+            raise ValueError('--coordinator: set RANK and WORLD_SIZE (and '
+                             'LOCAL_RANK) of this process')
+        return int(os.environ['WORLD_SIZE'])
+    if opts.num_devices is not None:
+        if opts.num_devices < 1:
+            raise ValueError(f'--gpus {opts.num_devices}')
+        return opts.num_devices
+    if torch.device(opts.device).type == 'cuda':
+        return max(torch.cuda.device_count(), 1)
+    return 1
+
+
+def setup_training_loop_kwargs(opts: EasyDict,
+                               ranks: Optional[int] = None,
+                               run_dir: Optional[str] = None) -> EasyDict:
+    """The keyword arguments of ``training_loop`` for parsed options and
+    ``ranks`` ranks (``num_ranks(opts)``): the dataset, the run directory
+    (``run_dir``, else the next free id under ``--outdir``), the ensemble
+    config and the ``TrainHyper``.  Without the global phases the renderer
+    is bypassed and not trained, in ``opts`` too."""
+    n_dev = num_ranks(opts) if ranks is None else ranks
     dataset = DatasetAIO(opts.data, xflip=opts.mirror,
                          conv_config_index=opts.conv_config_index)
     res = dataset.resolution
@@ -200,6 +233,9 @@ def setup_training_loop_kwargs(opts: EasyDict) -> EasyDict:
     if opts.cfg == 'auto':
         spec = resolve_auto_spec(spec, res, n_dev)
     batch = opts.batch or spec.mb
+    if batch % n_dev != 0:
+        raise ValueError(f'--batch {batch} does not divide over {n_dev} '
+                         'ranks')
 
     if not opts.train_global:
         # step-1 semantics (reference: custom/training_loop_aio.py:83-86)
@@ -243,18 +279,24 @@ def setup_training_loop_kwargs(opts: EasyDict) -> EasyDict:
         microbatch=opts.batch_gpu,
         global_microbatch=opts.global_batch_gpu)
     hyper.global_accum_rounds        # raise now if a microbatch is no divisor
+    for name in ('microbatch', 'global_microbatch'):
+        value = getattr(hyper, name)
+        if value is not None and value % n_dev:
+            raise ValueError(f'{name} {value} does not divide over {n_dev} '
+                             'ranks')
 
     desc = f'{dataset.name}-{opts.cfg}'
     if opts.mirror:
         desc += '-mirror'
     desc += resume_desc
     return EasyDict(
-        run_dir=next_run_dir(opts.outdir, desc), dataset=dataset, cfg=cfg,
+        run_dir=run_dir or next_run_dir(opts.outdir, desc), dataset=dataset,
+        cfg=cfg,
         hyper=hyper, total_kimg=opts.kimg or spec.kimg,
         kimg_per_tick=opts.kimg_per_tick,
         image_snapshot_ticks=opts.img_snap,
         network_snapshot_ticks=opts.net_snap, random_seed=opts.seed,
-        resume_path=resume_path, num_devices=opts.num_devices,
+        resume_path=resume_path, num_devices=n_dev,
         run_once=opts.run_once, save_all_layers=opts.save_all_layers,
         run_latent_interpolation=opts.run_latent_interpolation,
         trace_dir=opts.trace_dir, device=opts.device)
@@ -268,13 +310,45 @@ def parse_options(argv: Optional[Sequence[str]] = None) -> EasyDict:
     return opts
 
 
+def _train(opts: EasyDict, kwargs: EasyDict):
+    """This process's part of the run: rank 0 writes the options and tees
+    its output into ``log.txt``."""
+    logger = None
+    if distributed.is_primary():
+        os.makedirs(kwargs.run_dir, exist_ok=True)
+        logger = Logger(os.path.join(kwargs.run_dir, 'log.txt'))
+        with open(os.path.join(kwargs.run_dir, 'training_options.json'),
+                  'w') as f:
+            json.dump({k: (v if isinstance(v, (int, float, bool, str,
+                                               type(None))) else str(v))
+                       for k, v in opts.items()}, f, indent=2)
+    try:
+        return training_loop(**kwargs)
+    finally:
+        if logger is not None:
+            logger.close()
+
+
+def _train_rank(local_rank: int, opts: EasyDict, kwargs: EasyDict,
+                world: int, port: int) -> None:
+    """One spawned rank of ``--gpus N`` (``parallel.distributed.launch``)."""
+    distributed.maybe_initialize(f'localhost:{port}', world, local_rank,
+                                 local_rank, device=opts.device)
+    _train(opts, kwargs)
+    # only after success: leaving the group waits for the other ranks, so a
+    # rank that raised leaves without it (the launcher ends the others)
+    distributed.shutdown()
+
+
 def main(argv: Optional[Sequence[str]] = None):
-    """Train MontageGAN all-in-one; returns the final train state (None for
-    a dry run)."""
+    """Train MontageGAN all-in-one; returns the final train state of this
+    process (None for a dry run, and where ``--gpus N`` spawned the ranks:
+    they write the snapshots)."""
     opts = parse_options(argv)
-    kwargs = setup_training_loop_kwargs(opts)
+    world = num_ranks(opts)
+    kwargs = setup_training_loop_kwargs(opts, world)
     print(json.dumps({'run_dir': kwargs.run_dir,
-                      'batch': kwargs.hyper.batch_size, 'devices': 1,
+                      'batch': kwargs.hyper.batch_size, 'devices': world,
                       'resolution': kwargs.dataset.resolution,
                       'layers': kwargs.dataset.layer_names}, indent=2))
     if opts.dry_run:
@@ -282,17 +356,24 @@ def main(argv: Optional[Sequence[str]] = None):
         return None
 
     training_device(opts.device)          # no card: raise, no fallback
-    os.makedirs(kwargs.run_dir, exist_ok=True)
-    logger = Logger(os.path.join(kwargs.run_dir, 'log.txt'))
-    with open(os.path.join(kwargs.run_dir, 'training_options.json'),
-              'w') as f:
-        json.dump({k: (v if isinstance(v, (int, float, bool, str,
-                                           type(None))) else str(v))
-                   for k, v in opts.items()}, f, indent=2)
-    try:
-        return training_loop(**kwargs)
-    finally:
-        logger.close()
+    if opts.coordinator is not None:
+        distributed.maybe_initialize(opts.coordinator, device=opts.device)
+        state = _train(opts, kwargs)
+        distributed.shutdown()            # after success only, as above
+        return state
+    if world == 1:
+        return _train(opts, kwargs)
+    if torch.device(opts.device).type == 'cuda':
+        if world > torch.cuda.device_count():
+            raise RuntimeError(f'--gpus {world}: '
+                               f'{torch.cuda.device_count()} CUDA cards '
+                               'visible')
+        from ..ops import cuda
+        cuda.build()                      # once, before the ranks start
+    distributed.launch(_train_rank, world,
+                       args=(opts, kwargs, world, distributed.free_port()),
+                       device=opts.device)
+    return None
 
 
 if __name__ == '__main__':

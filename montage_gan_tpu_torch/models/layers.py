@@ -17,6 +17,7 @@ from torch import nn
 from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.conv2d_resample import conv2d_resample
 from ..ops.filters import setup_filter
+from ..parallel import mesh
 
 
 def normalize_2nd_moment(x: torch.Tensor, dim: int = -1,
@@ -102,7 +103,10 @@ class Conv2dLayer(nn.Module):
 class MinibatchStd(nn.Module):
     """Minibatch standard-deviation feature channel
     (``montage_gan_tpu/models/layers.py:97-118``).  Groups are strided over
-    the batch axis: sample ``n`` is in group ``n % (N / G)``."""
+    the batch axis: sample ``n`` is in group ``n % (N / G)``.  Under data
+    parallelism ``N`` is the global batch (as in the JAX package's step over
+    its mesh): the ranks' inputs are gathered, with gradient, and each rank
+    keeps its rows."""
 
     def __init__(self, group_size: Optional[int] = 4, num_channels: int = 1):
         super().__init__()
@@ -110,15 +114,18 @@ class MinibatchStd(nn.Module):
         self.num_channels = num_channels
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n, h, w, c = x.shape
+        xs, first = mesh.gather_batch(x)
+        n, h, w, c = xs.shape
         g = min(self.group_size, n) if self.group_size is not None else n
         if n % g != 0:
             raise ValueError(f'batch {n} not divisible by mbstd group {g}')
         f = self.num_channels
-        y = x.float().reshape(g, -1, h, w, f, c // f)
+        y = xs.float().reshape(g, -1, h, w, f, c // f)
         y = y - y.mean(dim=0, keepdim=True)
         y = y.square().mean(dim=0)                     # [n/g, h, w, f, cc]
         y = (y + 1e-8).sqrt()
         y = y.mean(dim=(1, 2, 4))                      # [n/g, f]
         y = y.reshape(1, -1, 1, 1, f).repeat(g, 1, h, w, 1).reshape(n, h, w, f)
+        if n != x.shape[0]:
+            y = y[first:first + x.shape[0]]
         return torch.cat([x, y.to(x.dtype)], dim=-1)

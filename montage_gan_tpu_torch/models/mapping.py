@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel import mesh
 from .layers import FullyConnected, normalize_2nd_moment
 
 
@@ -54,7 +55,7 @@ class MappingNetwork(nn.Module):
         """z ``[B, z_dim]`` → ``[B, num_ws, w_dim]``, pulled towards
         ``w_avg`` by ``truncation_psi``.  ``update_w_avg`` (training) first
         moves ``w_avg`` in place: ``β·w_avg + (1 − β)·mean(w)`` over the
-        batch, β = ``w_avg_beta``."""
+        (global) batch, β = ``w_avg_beta``."""
         assert z.shape[-1] == self.z_dim
         x = normalize_2nd_moment(z.float())
         for idx in range(self.num_layers):
@@ -62,7 +63,8 @@ class MappingNetwork(nn.Module):
         if update_w_avg:
             with torch.no_grad():
                 self.w_avg.copy_(self.w_avg_beta * self.w_avg
-                                 + (1.0 - self.w_avg_beta) * x.mean(dim=0))
+                                 + (1.0 - self.w_avg_beta)
+                                 * mesh.global_mean(x.mean(dim=0)))
         x = x[:, None, :].repeat(1, self.num_ws, 1)
         if truncation_psi != 1:
             x = self.w_avg + truncation_psi * (x - self.w_avg)

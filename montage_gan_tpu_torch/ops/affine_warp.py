@@ -45,7 +45,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .cuda import CudaKernel, stream_handle, takes_plain, tensor_bytes
+from .cuda import (CudaKernel, launch_device, stream_handle, takes_plain,
+                   tensor_bytes)
 from .grid_sample import affine_grid, grid_sample
 from .upfirdn2d import upsample2d_ref
 
@@ -507,7 +508,7 @@ def _launch(kern: CudaKernel, kind: str, src: torch.Tensor,
                 dst.data_ptr(), n, in_hw[0], in_hw[1], c, out_hw[0],
                 out_hw[1], taps.shape[0], up, VARIANT_CODES[plan.variant],
                 plan.tile[0], plan.tile[1], plan.smem_bytes, counter,
-                stream_handle(src.get_device()), variant=plan.variant,
+                stream_handle(launch_device(src)), variant=plan.variant,
                 nbytes=tensor_bytes(src, theta, taps, dst))
 
 

@@ -35,7 +35,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .cuda import CudaKernel, stream_handle, takes_plain, tensor_bytes
+from .cuda import (CudaKernel, launch_device, stream_handle, takes_plain,
+                   tensor_bytes)
 
 # Activation registry (montage_gan_tpu/ops/bias_act.py:31-50); `code` is the
 # activation's number in csrc/bias_act.cu.  `ref` names the saved tensor the
@@ -165,7 +166,7 @@ def bias_act_cuda(x: torch.Tensor, b: Optional[torch.Tensor] = None,
     plan = _stream_plan(n, C, x.element_size(), xp % 16 == 0, b is not None)
     kernel.launch(xp, _ptr(b), y.data_ptr(), n, C, _DTYPE_CODES[x.dtype],
                   spec.code, alpha, gain, _clamp_arg(clamp), plan.code,
-                  plan.grid, stream_handle(x.get_device()),
+                  plan.grid, stream_handle(launch_device(x)),
                   variant=plan.variant, nbytes=plan.moved)
     return y
 
@@ -201,7 +202,7 @@ def bias_act_grad_cuda(g: torch.Tensor, x: Optional[torch.Tensor],
                        out.data_ptr(), g.numel(),
                        1 if b is None else b.shape[0], _DTYPE_CODES[g.dtype],
                        spec.code, order, alpha, gain, _clamp_arg(clamp),
-                       stream_handle(g.get_device()),
+                       stream_handle(launch_device(g)),
                        nbytes=tensor_bytes(g, x if reads_x else None,
                                            b if reads_x else None,
                                            y if reads_y else None,

@@ -37,7 +37,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from .cuda import CudaKernel, stream_handle, takes_plain, tensor_bytes
+from .cuda import (CudaKernel, launch_device, stream_handle, takes_plain,
+                   tensor_bytes)
 from .grid_sample import translate_sample
 
 kernel = CudaKernel('composite', 'mgt_translate_composite',
@@ -271,7 +272,7 @@ def translate_and_composite_cuda(layers: torch.Tensor,
     out = torch.empty(b, h, w, 4, dtype=torch.float32, device=layers.device)
     kernel.launch(layers.data_ptr(), translations.data_ptr(), out.data_ptr(),
                   b, l, h, w, float(pad_value), VARIANT_CODES[plan.variant],
-                  plan.rows, stream_handle(layers.get_device()),
+                  plan.rows, stream_handle(launch_device(layers)),
                   variant=plan.variant,
                   nbytes=tensor_bytes(layers, translations, out))
     return out

@@ -160,6 +160,24 @@ def takes_plain(x) -> bool:
     return x.device.type == 'cpu'
 
 
+def check_current(device, current: int) -> int:
+    """``device``'s index, where it is the CUDA device of index
+    ``current``; raises otherwise.  An entry point launches on the current
+    device and reads its attributes there, so a tensor on another card
+    would be read from the wrong one."""
+    if device.type != 'cuda' or device.index != current:
+        raise RuntimeError(f'a kernel launch for a tensor on {device} while '
+                           f'cuda:{current} is the current device: make the '
+                           'tensor\'s card current (torch.cuda.set_device)')
+    return device.index
+
+
+def launch_device(x) -> int:
+    """The index of ``x``'s card, which must be the current device."""
+    import torch
+    return check_current(x.device, torch.cuda.current_device())
+
+
 def stream_handle(device: int) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on the CUDA
     device of index ``device`` (``tensor.get_device()``), read without

@@ -37,7 +37,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .cuda import CudaKernel, stream_handle, takes_plain, tensor_bytes
+from .cuda import (CudaKernel, launch_device, stream_handle, takes_plain,
+                   tensor_bytes)
 
 IntOrPair = Union[int, Sequence[int]]
 
@@ -278,7 +279,7 @@ def upfirdn2d_cuda(x: torch.Tensor, f, up: IntOrPair = 1, down: IntOrPair = 1,
                   _DTYPE_CODES[x.dtype], n, h, w, c, out_h, out_w,
                   upx, upy, downx, downy, padx0, pady0, fh, fw,
                   int(separable), int(flip_filter), float(tap_gain),
-                  VARIANT_CODES[variant], smem, stream_handle(x.get_device()),
+                  VARIANT_CODES[variant], smem, stream_handle(launch_device(x)),
                   variant=variant, nbytes=tensor_bytes(x, f, y))
     return y
 

@@ -1,0 +1,128 @@
+"""Exact kernel launch counts of the port's main paths, from the module
+structure: what ``chip_smoke.py``, ``tools/ddp_check.py`` and the CPU tests
+(through the kernels' emulated autograd Functions) hold the launch counters
+to.  Per rank of a data-parallel run the counts are one process's: a rank
+runs every phase on its share of each round.
+"""
+
+from __future__ import annotations
+
+
+def expected_launches(model):
+    """Launches one sampling call makes: one bias_act per FullyConnected,
+    SynthesisLayer and ToRGBLayer forward; one upfirdn2d (the ToRGB skip
+    upsample) per synthesis block above the first."""
+    from ..models.layers import FullyConnected
+    from ..models.synthesis import SynthesisLayer, ToRGBLayer
+    k1 = sum(isinstance(m, (FullyConnected, SynthesisLayer, ToRGBLayer))
+             for m in model.modules())
+    k2 = sum(len(net.block_resolutions) - 1 for net in model.local_g)
+    return {'bias_act': k1, 'upfirdn2d': k2}
+
+
+def expected_train_launches(model, hyper, steps):
+    """Launches of ``steps`` training steps from step 0, per kernel, from the
+    module structure.  Per local layer (G: S synthesis layers, T ToRGBs, A
+    style affines, B blocks; D: nD bias_act layers, Lb of them in the
+    blocks; M mapping FCs, twice with style mixing):
+
+    * K1' forward: one per bias_act a forward runs.  Gmain M + G + D;
+      Greg M + G; Dmain M + G + 2 D (fakes and reals apart); Dr1 D.
+    * K1' grad: one per backward of a bias_act whose activation is not the
+      identity (the affines and D's last FC are linear with gain 1, no
+      clamp: their backward is the identity; so are the ToRGBs' without
+      ``conv_clamp``, and T counts 0 in K1' grad).  Gmain: D (nD - 1), G (S + T),
+      M.  Greg: inner grad S + T; outer: each synthesis layer's order-1 node
+      (S) and forward node (S: the style gradient reads its output), and M.
+      The ToRGBs' inner nodes see the constant path-length noise and record
+      nothing.  Dmain: 2 (nD - 1).  Dr1: inner nD - 1, outer nD - 1 for the
+      order-1 nodes and Lb for the block layers' forward nodes (the
+      minibatch-std's gradient reads the blocks' output).
+    * K2' (forward and backward): B - 1 per G forward; Gmain's backward
+      B - 1; Greg's inner grad B - 1 (its outer pass reads none).
+    * K3': the augmented forward in Gmain (B), Dmain (2B) and Dr1, and the
+      backward of K4' in Dr1's outer pass.  K4': Gmain's backward and Dr1's
+      inner grad.
+
+    The renderer and global phases run every local G once per global
+    forward (all layers: M + G each, and B - 1 K2'), and the global D (nD,
+    Lb of its own) as a local D is run: the renderer phase one global
+    forward without gradients; global Gmain a global forward, the D, and
+    the backward of both (no renderer, STN or composite op launches a
+    kernel); global Dmain a global forward without gradients and the D on
+    fakes and reals, augmented together at 2B; global R1 the D's Dr1.  The
+    global pipe's warp runs as in the local phases.
+
+    With microbatch accumulation every round runs its phase's forward and
+    backward over its slice of the batch: the local phases' launches are
+    multiplied by ``hyper.accum_rounds``, the renderer's and the global
+    phases' by ``hyper.global_accum_rounds``."""
+    from ..models.layers import Conv2dLayer, FullyConnected
+    from ..models.synthesis import SynthesisLayer, ToRGBLayer
+
+    def count(module, kinds):
+        return sum(isinstance(m, kinds) for m in module.modules())
+
+    def d_counts(d):
+        return (count(d, (Conv2dLayer, FullyConnected)),
+                sum(count(b, Conv2dLayer) for b in d.blocks()))
+
+    def has_warp(aug):
+        return int(aug is not None and (aug.any_blit or aug.any_geom))
+
+    warp = has_warp(hyper.augment if not hyper.local_noaug else None)
+    gwarp = has_warp(hyper.augment if not hyper.global_noaug else None)
+    m = model.mapping.num_layers * (2 if hyper.style_mixing_prob > 0 else 1)
+    clamped = int(model.cfg.conv_clamp is not None)
+    g_fwd = g_grad = g_up = 0        # one global forward: all local Gs
+    for g in model.local_g:
+        s, t = count(g, SynthesisLayer), count(g, ToRGBLayer)
+        g_fwd += m + s + t + count(g, FullyConnected)
+        g_grad += m + s + t * clamped
+        g_up += len(g.block_resolutions) - 1
+    use_r = not hyper.bypass_renderer and model.renderer is not None
+    rounds, grounds = hyper.accum_rounds, hyper.global_accum_rounds
+    renderer = int(hyper.train_renderer and use_r) * grounds
+    glob = int(hyper.train_global and model.stn is not None)
+    out = dict.fromkeys(('bias_act', 'bias_act_grad', 'upfirdn2d',
+                         'warp_forward', 'warp_transpose'), 0)
+    for step in range(steps):
+        greg = int(hyper.g_reg_interval is not None and hyper.pl_weight != 0
+                   and step % hyper.g_reg_interval == 0)
+        dr1 = int(hyper.d_reg_interval is not None and hyper.r1_gamma != 0
+                  and step % hyper.d_reg_interval == 0)
+        for g, d in zip(model.local_g, model.local_d):
+            if not hyper.train_local:
+                break
+            s, t = count(g, SynthesisLayer), count(g, ToRGBLayer)
+            n_g = s + t + count(g, FullyConnected)
+            t_grad = t * clamped
+            blocks = len(g.block_resolutions)
+            n_d, lb = d_counts(d)
+            out['bias_act'] += rounds * ((m + n_g + n_d) + greg * (m + n_g)
+                                         + (m + n_g + 2 * n_d) + dr1 * n_d)
+            out['bias_act_grad'] += rounds * ((n_d - 1 + s + t_grad + m)
+                                              + greg * (3 * s + t_grad + m)
+                                              + 2 * (n_d - 1)
+                                              + dr1 * (2 * (n_d - 1) + lb))
+            out['upfirdn2d'] += rounds * (blocks - 1) * (2 + 2 * greg + 1)
+            out['warp_forward'] += rounds * warp * (2 + 2 * dr1)
+            out['warp_transpose'] += rounds * warp * (1 + dr1)
+        out['bias_act'] += renderer * g_fwd
+        out['upfirdn2d'] += renderer * g_up
+        if not glob:
+            continue
+        goi = hyper.global_optimize_interval
+        n_d, lb = d_counts(model.global_d)
+        main = int(step % goi == 0) * grounds
+        gr1 = int(hyper.d_reg_interval is not None
+                  and hyper.global_r1_gamma != 0
+                  and step % (hyper.d_reg_interval * goi) == 0) * grounds
+        out['bias_act'] += (main * ((g_fwd + n_d) + (g_fwd + 2 * n_d))
+                            + gr1 * n_d)
+        out['bias_act_grad'] += (main * ((n_d - 1 + g_grad) + 2 * (n_d - 1))
+                                 + gr1 * (2 * (n_d - 1) + lb))
+        out['upfirdn2d'] += main * 3 * g_up
+        out['warp_forward'] += gwarp * (2 * main + 2 * gr1)
+        out['warp_transpose'] += gwarp * (main + gr1)
+    return out

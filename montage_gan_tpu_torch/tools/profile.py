@@ -53,6 +53,9 @@ FAMILIES = (
     ("K3' warp forward", ('warp_forward',)),
     ("K4' warp transpose", ('warp_transpose',)),
     ("K5' composite", ('composite_kernel',)),
+    # before the library families: 'AllReduce' and 'AllGather' would match
+    # 'reduce' and 'gather'
+    ('collectives (NCCL)', ('nccl',)),
     ('convolution (cuDNN)', ('conv', 'fprop', 'dgrad', 'wgrad', 'cudnn',
                              'winograd', 'implicit_gemm')),
     ('matrix products (cuBLAS)', ('gemm', 'gemv')),

@@ -19,10 +19,19 @@ The step's draws come from a generator on the device seeded from
 cur_nimg)``).  A step's stats leave the device as one stacked tensor, copied
 without waiting; the loop reads them at the tick's end.
 
-Not ported: the mesh and multi-host data parallelism (``num_devices`` other
-than None or 1 raises; ROADMAP queue 1, item 4), the phase executor with
-its AOT precompile and ``merge_locals`` (the TPU's dispatch machinery), and
-the in-training metrics (a non-empty ``metrics`` raises; item 6).
+Data parallelism: where a process group is up
+(``parallel/distributed.py``; ``cli/train_aio.py --gpus N`` or
+``--coordinator``), every rank runs this loop on its card with its stride
+of the sampler stream at ``batch_size / world`` a step
+(``parallel/mesh.py``).  A fresh state is broadcast from rank 0; a resumed
+one is read by every rank.  Rank 0 alone prints and writes the options,
+``stats.jsonl``, TensorBoard, the grids and the snapshots; every network
+snapshot first checks that the ranks' train states are identical, and the
+ranks wait for it at a barrier.
+
+Not ported: the phase executor with its AOT precompile and
+``merge_locals`` (the TPU's dispatch machinery), and the in-training
+metrics (a non-empty ``metrics`` raises; ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -41,6 +50,8 @@ import torch
 from ..data.dataset import DatasetAIO
 from ..data.sampler import InfiniteSampler
 from ..models.ensemble import MontageConfig, MontageEnsemble
+from ..parallel import mesh
+from ..parallel.distributed import process_info
 from ..utils import checkpoint as ckpt
 from ..utils.grid import save_image_grid
 from ..utils.image_utils import (alpha_composite_np, crop_to_content_np,
@@ -69,17 +80,21 @@ class BatchPrefetcher:
     layer stack ``[B, L, H, W, 4]`` and the local Ds' centred crops
     ``[B, h_l, w_l, 4]`` of each layer, in the order of the sampler's
     stream (the JAX ``BatchPrefetcher``'s; its values are these through
-    ``to_device``).  ``pin_memory`` pins them for asynchronous copies to the
+    ``to_device``), rank ``rank`` of ``num_replicas`` taking its stride of
+    the stream.  ``pin_memory`` pins them for asynchronous copies to the
     card."""
 
     def __init__(self, dataset: DatasetAIO, batch_size: int,
                  layer_targets: Sequence[Sequence[int]], seed: int = 0,
-                 depth: int = 3, pin_memory: bool = False):
+                 depth: int = 3, pin_memory: bool = False, rank: int = 0,
+                 num_replicas: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.layer_targets = [tuple(t) for t in layer_targets]
         self.pin_memory = pin_memory
-        self.sampler = iter(InfiniteSampler(len(dataset), seed=seed))
+        self.sampler = iter(InfiniteSampler(len(dataset), rank=rank,
+                                            num_replicas=num_replicas,
+                                            seed=seed))
         dataset.item_paths()          # list the files before the threads
         self.pool = ThreadPoolExecutor(max_workers=DECODE_THREADS,
                                        thread_name_prefix='mgt-decode')
@@ -180,12 +195,15 @@ def config_from_dataset(dataset: DatasetAIO, **overrides) -> MontageConfig:
 
 
 def training_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device without a card raises
-    (training never falls back to the CPU)."""
+    """``device`` as a ``torch.device`` (``'cuda'``: the current card); a
+    CUDA device without a card raises (training never falls back to the
+    CPU)."""
     dev = torch.device(device)
     if dev.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('no CUDA device: pass --device cpu (device="cpu") '
                            'to train on the CPU')
+    if dev.type == 'cuda' and dev.index is None:
+        dev = torch.device('cuda', torch.cuda.current_device())
     return dev
 
 
@@ -229,42 +247,57 @@ def training_loop(
         device: str = 'cuda',
 ) -> MontageTrainState:
     """Train until ``total_kimg`` thousand images (or one tick with
-    ``run_once``, or until ``abort_fn()``); returns the final state."""
-    if num_devices not in (None, 1):
-        raise NotImplementedError(
-            f'num_devices={num_devices}: the port trains on one card; data '
-            'parallelism waits for ROADMAP queue 1, item 4')
+    ``run_once``, or until ``abort_fn()``); returns the final state.  With
+    a process group up, this process is one rank of the data-parallel run
+    (``num_devices``, where given, must be its world size)."""
     if metrics:
         raise NotImplementedError(
             f'metrics {metrics}: in-training metrics wait for ROADMAP queue '
             '1, item 6')
     dev = training_device(device)
-    os.makedirs(run_dir, exist_ok=True)
+    rank, world = process_info()
+    if num_devices not in (None, world):
+        raise ValueError(f'num_devices={num_devices}, {world} rank(s): one '
+                         'process per card (cli/train_aio.py --gpus N)')
+    dp = (mesh.DataParallel.from_process_group(dev)
+          if torch.distributed.is_initialized() else None)
+    primary = rank == 0
+    say = print if primary else (lambda *a, **k: None)
     if cfg is None:
         cfg = config_from_dataset(dataset)
     if hyper is None:
         hyper = TrainHyper()
+    if hyper.batch_size % world:
+        raise ValueError(f'batch {hyper.batch_size} does not divide over '
+                         f'{world} ranks')
 
-    with open(os.path.join(run_dir, 'montage_gan_options.json'), 'w') as f:
-        json.dump({'config': str(cfg), 'hyper': str(hyper)}, f, indent=2)
+    if primary:
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, 'montage_gan_options.json'),
+                  'w') as f:
+            json.dump({'config': str(cfg), 'hyper': str(hyper)}, f, indent=2)
 
     ens = MontageEnsemble(cfg, with_d=True)
-    trainer = MontageTrainer(ens, hyper, device=dev)
-    print(f'Constructing state ({cfg.num_layers} layers, base '
-          f'{cfg.base_resolution}px, device {dev})...')
+    trainer = MontageTrainer(ens, hyper, device=dev, data_parallel=dp)
+    say(f'Constructing state ({cfg.num_layers} layers, base '
+        f'{cfg.base_resolution}px, device {dev}, {world} rank(s))...')
     if resume_path is not None:
-        print(f'Resuming from "{resume_path}"')
+        say(f'Resuming from "{resume_path}"')
         t0 = time.time()
         state = ckpt.restore_train_state(resume_path, trainer)
-        print(f'Restored {resume_path}: {os.path.getsize(resume_path)} '
-              f'bytes in {time.time() - t0:.2f} s')
+        say(f'Restored {resume_path}: {os.path.getsize(resume_path)} '
+            f'bytes in {time.time() - t0:.2f} s')
     else:
         state = trainer.init_state(random_seed)
-    print(ensemble_summary(ens, layer_names=cfg.layer_names))
+        if dp is not None:
+            mesh.replicate((t for _, t in ckpt.train_state_tensors(state)),
+                           dp)
+    say(ensemble_summary(ens, layer_names=cfg.layer_names))
 
-    prefetcher = BatchPrefetcher(dataset, hyper.batch_size,
+    prefetcher = BatchPrefetcher(dataset, hyper.batch_size // world,
                                  cfg.layer_targets, seed=random_seed,
-                                 pin_memory=dev.type == 'cuda')
+                                 pin_memory=dev.type == 'cuda', rank=rank,
+                                 num_replicas=world)
     jsonl = tb = profiler = None
     try:
         # reals preview + fixed grid z (reference: training_loop_aio.py:
@@ -272,10 +305,11 @@ def training_loop(
         grid_size = min(32, hyper.batch_size)
         grid_z = np.random.RandomState(random_seed + 1).randn(grid_size,
                                                               cfg.z_dim)
-        preview = np.stack([dataset[i % len(dataset)]
-                            for i in range(grid_size)])
-        save_image_grid(alpha_composite_np(preview),
-                        os.path.join(run_dir, 'reals.png'), nrow=8)
+        if primary:
+            preview = np.stack([dataset[i % len(dataset)]
+                                for i in range(grid_size)])
+            save_image_grid(alpha_composite_np(preview),
+                            os.path.join(run_dir, 'reals.png'), nrow=8)
 
         @torch.no_grad()
         def sample_fn(z: np.ndarray) -> np.ndarray:
@@ -289,9 +323,10 @@ def training_loop(
             return out.float().cpu().numpy()
 
         acc = StatsAccumulator()
-        collector = Collector(acc)
-        jsonl = JsonlWriter(os.path.join(run_dir, 'stats.jsonl'))
-        tb = make_tensorboard_writer(run_dir)
+        collector = Collector(acc, data_parallel=dp)
+        if primary:
+            jsonl = JsonlWriter(os.path.join(run_dir, 'stats.jsonl'))
+            tb = make_tensorboard_writer(run_dir)
         generator = torch.Generator(device=dev)
         lut = U8_TO_MINUS11.to(dev)
 
@@ -302,7 +337,7 @@ def training_loop(
         tick_start_time = start_time
         maintenance_time = 0.0
         pending = []                  # this tick's stats, on their way
-        print(f'Training for {total_kimg} kimg...')
+        say(f'Training for {total_kimg} kimg...')
 
         it = 0
         while True:
@@ -313,7 +348,7 @@ def training_loop(
 
             # profiler window (reference region annotation, custom/
             # training_loop_aio.py:511-516): a few post-warmup steps
-            if trace_dir is not None and it == trace_start_iter:
+            if primary and trace_dir is not None and it == trace_start_iter:
                 activities = [torch.profiler.ProfilerActivity.CPU]
                 if dev.type == 'cuda':
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -357,14 +392,21 @@ def training_loop(
             acc.report('Timing/total_sec', tick_end_time - start_time)
             acc.report('Timing/sec_per_tick', tick_end_time - tick_start_time)
             acc.report('Timing/sec_per_kimg', sec_per_kimg)
-            print(' '.join(fields))
+            if dev.type == 'cuda':
+                # this rank's peak so far (the reference's
+                # Resources/peak_gpu_mem_gb)
+                peak = torch.cuda.max_memory_allocated(dev) / 2**30
+                fields.append(f"gpumem {peak:<6.2f}")
+                acc.report('Resources/peak_gpu_mem_gb', peak)
+            say(' '.join(fields))
 
-            if (not done) and (abort_fn is not None) and abort_fn():
+            if (not done) and (abort_fn is not None) and \
+                    mesh.broadcast_flag(abort_fn(), dp):
                 done = True
-                print('Aborting...')
+                say('Aborting...')
 
             # image snapshot (EMA samples, reference :750-766)
-            if image_snapshot_ticks is not None and \
+            if primary and image_snapshot_ticks is not None and \
                     (done or cur_tick % image_snapshot_ticks == 0):
                 _image_snapshot(run_dir, cur_nimg, sample_fn, grid_z,
                                 grid_size, cfg, random_seed, save_all_layers,
@@ -373,19 +415,30 @@ def training_loop(
             # network snapshot
             if network_snapshot_ticks is not None and \
                     (done or cur_tick % network_snapshot_ticks == 0):
-                kimg = cur_nimg // 1000
-                t0 = time.time()
-                path = ckpt.save_train_state(run_dir, kimg, state)
-                print(f'Saved {path}: {os.path.getsize(path)} bytes in '
-                      f'{time.time() - t0:.2f} s')
-                path = os.path.join(run_dir, f'ema-snapshot-{kimg:06d}.pt')
-                t0 = time.time()
-                ckpt.save_ema_snapshot(path, cfg, state.ema, ens.renderer)
-                print(f'Saved {path}: {os.path.getsize(path)} bytes in '
-                      f'{time.time() - t0:.2f} s')
+                if dp is not None:
+                    t0 = time.time()
+                    n = mesh.assert_replicated(
+                        ckpt.train_state_tensors(state), dp)
+                    say(f'Checked {n} tensors replicated over {world} ranks '
+                        f'in {time.time() - t0:.2f} s')
+                if primary:
+                    kimg = cur_nimg // 1000
+                    t0 = time.time()
+                    path = ckpt.save_train_state(run_dir, kimg, state)
+                    print(f'Saved {path}: {os.path.getsize(path)} bytes in '
+                          f'{time.time() - t0:.2f} s')
+                    path = os.path.join(run_dir,
+                                        f'ema-snapshot-{kimg:06d}.pt')
+                    t0 = time.time()
+                    ckpt.save_ema_snapshot(path, cfg, state.ema,
+                                           ens.renderer)
+                    print(f'Saved {path}: {os.path.getsize(path)} bytes in '
+                          f'{time.time() - t0:.2f} s')
+                mesh.barrier(dp)
 
             collector.update()
-            jsonl.write(collector.as_dict(), timestamp=time.time())
+            if jsonl is not None:
+                jsonl.write(collector.as_dict(), timestamp=time.time())
             if tb is not None:
                 for name, v in collector.as_dict().items():
                     tb.add_scalar(name, v.mean,
@@ -408,7 +461,7 @@ def training_loop(
             jsonl.close()
         if tb is not None:
             tb.close()
-    print('Exiting...')
+    say('Exiting...')
     return state
 
 

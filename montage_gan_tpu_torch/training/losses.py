@@ -11,6 +11,14 @@ Path length and both R1s keep the double-backward structure
 (``create_graph=True``): the outer gradient differentiates the inner one, as
 the reference does.  Every random tensor comes from a ``Draws``.
 
+Under data parallelism (``parallel/mesh.py``) each rank holds its rows of
+the global batch, and what mixes samples is made global as in the JAX
+package's step over the global batch: path length's leading rows and its
+running mean, the theta constraint (a norm over the batch) and the
+renderer's PSNR; the minibatch-std groups and ``w_avg`` in the modules.  A
+loss's mean over the rank's rows becomes the global mean when the ranks'
+gradients are averaged.
+
 The JAX package vmaps the global forward over same-geometry layers and
 rematerialises it (``jax.checkpoint``); neither changes a result, and the
 port runs the layers in a plain loop.
@@ -27,8 +35,8 @@ import torch.nn.functional as F
 from ..models.ensemble import MontageEnsemble
 from ..ops.composite import alpha_composite
 from ..ops.grid_sample import translate_to_theta
-from ..utils.image_utils import (calc_psnr, make_batch_for_pos_estimator,
-                                 normalize_zero1)
+from ..parallel import mesh
+from ..utils.image_utils import make_batch_for_pos_estimator, normalize_zero1
 from .augment import AugmentConfig, augment_pipe
 from .draws import Draws
 
@@ -44,7 +52,7 @@ def run_mapping_with_mixing(ens: MontageEnsemble, z: torch.Tensor,
     ws = ens.mapping(z, update_w_avg=update_w_avg)
     if style_mixing_prob > 0:
         num_ws = ws.shape[-2]
-        u = draws.uniform([2], 'style_mixing')
+        u = draws.uniform([2], 'style_mixing_cutoff')
         cutoff = 1 + torch.floor(u[0] * (num_ws - 1))
         cutoff = torch.where(u[1] < style_mixing_prob, cutoff,
                              torch.full_like(cutoff, num_ws))
@@ -92,10 +100,12 @@ def local_gpl_loss(ens: MontageEnsemble, layer: int, z: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor, Stats]:
     """Path-length regularizer: the gradient of ``sum(img · noise)`` with
     respect to the layer's ws (no weight gradients in the inner pass), its
-    length's deviation from the running mean.  Returns (loss, new pl_mean,
-    stats)."""
-    batch = z.shape[0] // pl_batch_shrink
-    ws = run_mapping_with_mixing(ens, z[:batch], draws, style_mixing_prob)
+    length's deviation from the running mean, on the first
+    ``1/pl_batch_shrink`` of the (global) batch.  Returns (loss, new
+    pl_mean, stats)."""
+    z = mesh.leading_rows(z, pl_batch_shrink)
+    batch = z.shape[0]
+    ws = run_mapping_with_mixing(ens, z, draws, style_mixing_prob)
     ws_l = ens.ws_for_layer(ws, layer)
     th, tw = ens.cfg.layer_targets[layer]
     pl_noise = draws.normal([batch, th, tw, ens.cfg.img_channels],
@@ -104,7 +114,8 @@ def local_gpl_loss(ens: MontageEnsemble, layer: int, z: torch.Tensor,
     pl_grads, = torch.autograd.grad((img * pl_noise).sum(), ws_l,
                                     create_graph=True)
     pl_lengths = pl_grads.square().sum(dim=2).mean(dim=1).sqrt()
-    new_pl_mean = (pl_mean + pl_decay * (pl_lengths.mean() - pl_mean)).detach()
+    new_pl_mean = (pl_mean + pl_decay * (mesh.global_mean(pl_lengths.mean())
+                                         - pl_mean)).detach()
     pl_penalty = (pl_lengths - new_pl_mean).square()
     loss = pl_penalty.mean() * pl_weight
     return loss, new_pl_mean, {'Loss/pl_penalty': pl_penalty.mean(),
@@ -124,7 +135,7 @@ def local_dmain_loss(ens: MontageEnsemble, layer: int, z: torch.Tensor,
         gen_img, _ = run_local_g(ens, layer, z, draws, style_mixing_prob)
     if aug_cfg is not None:
         both = augment_pipe(torch.cat([gen_img, real_img]), aug_p, aug_cfg,
-                            draws)
+                            draws.blocks(2))
         gen_in, real_in = both.chunk(2)
     else:
         gen_in, real_in = gen_img, real_img
@@ -161,11 +172,11 @@ def local_dr1_loss(ens: MontageEnsemble, layer: int, real_img: torch.Tensor,
 
 def theta_constrain_loss(theta: torch.Tensor) -> torch.Tensor:
     """L2 norm of the part of ``theta`` ``[..., L, 2, 3]`` outside the
-    [-1, 1] translation box."""
+    [-1, 1] translation box, over the (global) batch."""
     ones = torch.ones(theta.shape[-3], 2, device=theta.device)
     upper, lower = translate_to_theta(ones), translate_to_theta(-ones)
     clamped = torch.maximum(torch.minimum(theta, upper), lower)
-    return ((theta - clamped).square().sum() + 1e-20).sqrt()
+    return (mesh.global_sum((theta - clamped).square().sum()) + 1e-20).sqrt()
 
 
 def run_global_g(ens: MontageEnsemble, z: torch.Tensor, draws: Draws,
@@ -235,7 +246,7 @@ def global_dmain_loss(ens: MontageEnsemble, z: torch.Tensor,
     real_use_r = use_renderer and real_use_renderer
     if real_use_r == use_renderer and placed.shape == real_stack.shape:
         both = _global_d_in(ens, torch.cat([placed, real_stack]), aug_cfg,
-                            aug_p, draws, use_renderer)
+                            aug_p, draws.blocks(2), use_renderer)
         gen_in, real_in = both.chunk(2)
         gen_logits, real_logits = ens.global_d(gen_in), ens.global_d(real_in)
     else:
@@ -290,7 +301,9 @@ def renderer_loss(ens: MontageEnsemble, z: torch.Tensor,
         target = alpha_composite(normalize_zero1(stack)).detach()
         diff = out01 - target
         loss = diff.square().mean() if loss_type == 'mse' else diff.abs().mean()
-        return loss, calc_psnr(out01.detach(), target)
+        # utils.image_utils.calc_psnr of the global batch
+        mse = mesh.global_mean((out01.detach() - target).square().mean())
+        return loss, 10.0 * torch.log10(1.0 / mse)
 
     loss, psnr = one(placed)
     stats = {'Renderer/loss_gen': loss, 'Renderer/psnr_gen': psnr}

@@ -32,6 +32,17 @@ ensemble's parameters and buffers (``w_avg``) move inside the step, and
 JAX's single traced program and its TPU dispatch machinery
 (``phase_exec.py``) have no counterpart.  Not ported yet (it raises
 ``NotImplementedError``): conditional labels.
+
+Data parallelism (``MontageTrainer(..., data_parallel=...)``, the JAX
+package's step over its data mesh): each rank of ``parallel/mesh.py`` runs
+the step on its ``batch_size / world`` rows of the global batch, laid out
+round-major (round ``k`` is global rows ``[k·mb, (k+1)·mb)``, and a rank's
+share of each round is its ``mb / world`` of them, in rank order), and
+draws through ``RankDraws``.  Each phase's summed gradients are averaged
+over the ranks before its optimizer step, the step's stats and ADA's sign
+counts once at its end; the modules and losses make global what mixes
+samples.  The step is then the one-process step at the global batch, up to
+float summation order.
 """
 
 from __future__ import annotations
@@ -45,9 +56,10 @@ import torch
 
 from .. import set_fp32_precision
 from ..models.ensemble import MontageEnsemble
+from ..parallel import mesh
 from . import losses
 from .augment import AugmentConfig
-from .draws import Draws
+from .draws import Draws, RankDraws
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,7 +204,8 @@ def accum_value_and_grad(loss_fn: Callable, params: Sequence[torch.Tensor],
     forward moves in place, starts every round from the same value and ends
     at the rounds' mean: an EMA step is linear in the batch mean, so that is
     the JAX package's averaged ``moving_stats``.  Every random draw of
-    ``loss_fn`` comes from its own ``Draws``, round after round.
+    ``loss_fn`` comes from its own ``Draws``, round after round.  Under data
+    parallelism the summed gradients are then averaged over the ranks.
 
     Returns ``(aux, grads)``; a gradient is ``None`` where the loss does
     not reach the parameter."""
@@ -200,7 +213,8 @@ def accum_value_and_grad(loss_fn: Callable, params: Sequence[torch.Tensor],
         loss, aux = loss_fn(*data)
         aux = {k: ({n: v.detach() for n, v in a.items()} if k == 'stats'
                    else a.detach()) for k, a in aux.items()}
-        return aux, torch.autograd.grad(loss, params, allow_unused=True)
+        return aux, mesh.all_reduce_grads(
+            torch.autograd.grad(loss, params, allow_unused=True))
     for x in data:
         if x.shape[0] % rounds != 0:
             raise ValueError(f'data batch {x.shape[0]} is not divisible by '
@@ -233,7 +247,7 @@ def accum_value_and_grad(loss_fn: Callable, params: Sequence[torch.Tensor],
     for k in ('sign_real', 'pl_mean'):
         if k in aux_r[0]:
             aux[k] = mean([a[k] for a in aux_r])
-    return aux, gsum
+    return aux, mesh.all_reduce_grads(gsum)
 
 
 def _apply_grads(opt: torch.optim.Optimizer,
@@ -258,14 +272,37 @@ def _merge_stats(stats: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]):
 
 class MontageTrainer:
     """The optimizers, the initial state and the step, on ``device`` (the
-    card unless the caller asks for ``'cpu'``)."""
+    card unless the caller asks for ``'cpu'``), on one process or as one
+    rank of ``data_parallel``, whose ``world`` must divide the batch and
+    the microbatches.
+
+    ``phase_hook``, where set, is called as ``phase_hook(name, grads)``
+    with each phase's gradients as its optimizer takes them (summed over
+    the rounds, averaged over the ranks): ``'renderer'``, ``'{layer}/Gmain'``,
+    ``'{layer}/Greg'``, ``'{layer}/Dmain'``, ``'{layer}/Dr1'``,
+    ``'global/Gmain'``, ``'global/Dmain'``, ``'global/Dr1'``."""
 
     def __init__(self, ens: MontageEnsemble, hyper: TrainHyper,
-                 device: Union[str, torch.device] = 'cuda'):
+                 device: Union[str, torch.device] = 'cuda',
+                 data_parallel: Optional[mesh.DataParallel] = None):
         if ens.local_d is None:
             raise ValueError('training needs MontageEnsemble(cfg, with_d=True)')
         self.rounds = hyper.accum_rounds            # raise if not a divisor
         self.global_rounds = hyper.global_accum_rounds
+        if data_parallel is not None:
+            world = data_parallel.world
+            for name in ('batch_size', 'microbatch', 'global_microbatch'):
+                value = getattr(hyper, name)
+                if value is not None and value % world:
+                    raise ValueError(f'{name} {value} does not divide over '
+                                     f'{world} ranks')
+            pl_rows = (hyper.microbatch or hyper.batch_size) \
+                // hyper.pl_batch_shrink
+            if hyper.g_reg_interval is not None and pl_rows % world:
+                raise ValueError(f'path length\'s {pl_rows} rows a round do '
+                                 f'not share among {world} ranks')
+        self.dp = data_parallel
+        self.phase_hook: Optional[Callable] = None
         self.ens = ens
         self.hyper = hyper
         self.device = torch.device(device)
@@ -356,8 +393,9 @@ class MontageTrainer:
                 phases).
             real_crops: per-layer ``[B, h_l, w_l, C]`` centered crops in
                 [-1, 1] (``utils.image_utils.make_batch_for_local_d_np``).
-            rng: a ``torch.Generator`` on the trainer's device, or a
-                ``Draws`` (the seam a test uses to inject draws).
+            rng: a ``torch.Generator`` on the trainer's device, seeded
+                alike on every rank, or a ``Draws`` (the seam a test uses
+                to inject draws).
         Returns:
             (state, dict of scalar tensors).
         """
@@ -373,8 +411,24 @@ class MontageTrainer:
         host-scheduling refinements)."""
         if real_c is not None or gen_c is not None:
             raise NotImplementedError('conditional labels are not ported yet')
-        ens, hyper, dev = self.ens, self.hyper, self.device
-        draws = rng if isinstance(rng, Draws) else Draws(rng)
+        with mesh.activate(self.dp):
+            return self._step(state, real_stack, real_crops, rng, do_local,
+                              do_global, do_renderer, do_ema_ada)
+
+    def _apply(self, name: str, opt, params, grads) -> None:
+        if self.phase_hook is not None:
+            self.phase_hook(name, grads)
+        _apply_grads(opt, params, grads)
+
+    def _step(self, state, real_stack, real_crops, rng, do_local, do_global,
+              do_renderer, do_ema_ada):
+        ens, hyper, dev, dp = self.ens, self.hyper, self.device, self.dp
+        if isinstance(rng, Draws):
+            draws = rng
+        elif dp is not None:
+            draws = RankDraws(rng, dp.rank, dp.world)
+        else:
+            draws = Draws(rng)
 
         def as_tensor(x):
             if not isinstance(x, torch.Tensor):
@@ -383,11 +437,15 @@ class MontageTrainer:
 
         crops = [as_tensor(c) for c in real_crops]
         batch = crops[0].shape[0]
+        if dp is not None and batch * dp.world != hyper.batch_size:
+            raise ValueError(f'rank {dp.rank}: a batch of {batch}, '
+                             f'{hyper.batch_size} over {dp.world} ranks')
         stats: Dict[str, torch.Tensor] = {}
+        signs = torch.zeros_like(state.ada_sign_sum)   # this step's, by lane
         step = state.step
 
-        def z(d=draws):
-            return d.normal([batch, ens.cfg.z_dim], 'z')
+        def z(rounds, d=draws):
+            return d.blocks(rounds).normal([batch, ens.cfg.z_dim], 'z')
 
         need_stack = ((do_renderer and hyper.train_renderer
                        and self._use_renderer)
@@ -405,8 +463,9 @@ class MontageTrainer:
                 return loss, {'stats': st}
             r_params = list(ens.renderer.parameters())
             aux, grads = accum_value_and_grad(
-                rloss, r_params, (z(rdraws), stack), self.global_rounds)
-            _apply_grads(state.opt_renderer, r_params, grads)
+                rloss, r_params, (z(self.global_rounds, rdraws), stack),
+                self.global_rounds)
+            self._apply('renderer', state.opt_renderer, r_params, grads)
             stats.update({k: v.detach() for k, v in aux['stats'].items()})
 
         if do_local and hyper.train_local:
@@ -424,8 +483,9 @@ class MontageTrainer:
                         hyper.style_mixing_prob)
                     return loss, {'stats': st}
                 aux, grads = accum_value_and_grad(
-                    gmain, g_params[i], (z(),), self.rounds, w_avg)
-                _apply_grads(state.opt_local_g[i], g_params[i], grads)
+                    gmain, g_params[i], (z(self.rounds),), self.rounds, w_avg)
+                self._apply(f'{name}/Gmain', state.opt_local_g[i],
+                            g_params[i], grads)
                 _merge_stats(stats, {f'{name}/{k}': v
                                      for k, v in aux['stats'].items()})
                 # ---- local_Greg (path length)
@@ -439,8 +499,10 @@ class MontageTrainer:
                         return (loss * float(hyper.g_reg_interval),
                                 {'stats': st, 'pl_mean': pl_i})
                     aux, grads = accum_value_and_grad(
-                        gpl, g_params[i], (z(),), self.rounds, w_avg)
-                    _apply_grads(state.opt_local_g[i], g_params[i], grads)
+                        gpl, g_params[i], (z(self.rounds),), self.rounds,
+                        w_avg)
+                    self._apply(f'{name}/Greg', state.opt_local_g[i],
+                                g_params[i], grads)
                     state.pl_mean[i] = aux['pl_mean']
 
                 # ---- local_Dmain
@@ -450,11 +512,13 @@ class MontageTrainer:
                         hyper.style_mixing_prob)
                     return loss, {'stats': st, 'sign_real': sign_real}
                 aux, grads = accum_value_and_grad(
-                    dmain, d_params, (z(), crops[i]), self.rounds, w_avg)
-                _apply_grads(state.opt_local_d[i], d_params, grads)
+                    dmain, d_params, (z(self.rounds), crops[i]), self.rounds,
+                    w_avg)
+                self._apply(f'{name}/Dmain', state.opt_local_d[i], d_params,
+                            grads)
                 _merge_stats(stats, {f'{name}/{k}': v
                                      for k, v in aux['stats'].items()})
-                state.ada_sign_sum[i] += aux['sign_real']
+                signs[i] += aux['sign_real']
                 state.ada_sign_count[i] += 1.0
                 # ---- local_Dreg (R1)
                 if (hyper.d_reg_interval is not None and hyper.r1_gamma != 0
@@ -467,13 +531,24 @@ class MontageTrainer:
                                 {'stats': st, 'sign_real': sign_real})
                     aux, grads = accum_value_and_grad(
                         dr1, d_params, (crops[i],), self.rounds)
-                    _apply_grads(state.opt_local_d[i], d_params, grads)
-                    state.ada_sign_sum[i] += aux['sign_real']
+                    self._apply(f'{name}/Dr1', state.opt_local_d[i],
+                                d_params, grads)
+                    signs[i] += aux['sign_real']
                     state.ada_sign_count[i] += 1.0
 
         if do_global and self._train_global:
-            self._global_phases(state, stack, draws.scoped('global_'), stats)
+            self._global_phases(state, stack, draws.scoped('global_'), stats,
+                                signs)
 
+        if dp is not None:
+            # one collective for the step's stats and sign means
+            names = list(stats)
+            flat = torch.cat([torch.stack([stats[k].float().reshape(())
+                                           for k in names]), signs])
+            flat = mesh.global_mean(flat)
+            stats = dict(zip(names, flat[:len(names)].unbind()))
+            signs = flat[len(names):]
+        state.ada_sign_sum += signs
         if do_ema_ada:
             self._ema_and_ada(state)
             for li, name in enumerate(ens.cfg.layer_names):
@@ -482,7 +557,8 @@ class MontageTrainer:
         return state, stats
 
     def _global_phases(self, state: MontageTrainState, stack: torch.Tensor,
-                       draws: Draws, stats: Dict[str, torch.Tensor]) -> None:
+                       draws: Draws, stats: Dict[str, torch.Tensor],
+                       signs: torch.Tensor) -> None:
         """Global Gmain and Dmain every goi steps, global R1 every
         ``d_reg_interval · goi`` steps; the global D's signs go to lane L."""
         ens, hyper = self.ens, self.hyper
@@ -496,11 +572,12 @@ class MontageTrainer:
             stats.update({f'global/{k}': v.detach() for k, v in st.items()})
 
         def count_sign(sign):
-            state.ada_sign_sum[lane] += sign
+            signs[lane] += sign
             state.ada_sign_count[lane] += 1.0
 
         def z():
-            return draws.normal([batch, ens.cfg.z_dim], 'z')
+            return draws.blocks(self.global_rounds).normal(
+                [batch, ens.cfg.z_dim], 'z')
 
         if state.step % goi == 0:
             def ggmain(z_mb):
@@ -512,7 +589,7 @@ class MontageTrainer:
             aux, grads = accum_value_and_grad(
                 ggmain, g_params, (z(),), self.global_rounds,
                 ens.mapping.w_avg)
-            _apply_grads(state.opt_global_g, g_params, grads)
+            self._apply('global/Gmain', state.opt_global_g, g_params, grads)
             put(aux['stats'])
 
             def gdmain(z_mb, stack_mb):
@@ -524,7 +601,7 @@ class MontageTrainer:
             aux, grads = accum_value_and_grad(
                 gdmain, d_params, (z(), stack), self.global_rounds,
                 ens.mapping.w_avg)
-            _apply_grads(state.opt_global_d, d_params, grads)
+            self._apply('global/Dmain', state.opt_global_d, d_params, grads)
             put(aux['stats'])
             count_sign(aux['sign_real'])
         if hyper.d_reg_interval is not None and hyper.global_r1_gamma != 0:
@@ -539,7 +616,8 @@ class MontageTrainer:
                             {'stats': st, 'sign_real': sign})
                 aux, grads = accum_value_and_grad(
                     gdr1, d_params, (stack,), self.global_rounds)
-                _apply_grads(state.opt_global_d, d_params, grads)
+                self._apply('global/Dr1', state.opt_global_d, d_params,
+                            grads)
                 put(aux['stats'])
                 count_sign(aux['sign_real'])
 

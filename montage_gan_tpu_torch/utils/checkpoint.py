@@ -9,7 +9,9 @@ loop's EMA snapshots (``save_ema_snapshot``) take that format, so
 reads: the ensemble's state dict, the EMA's, every optimizer's
 ``state_dict()``, ``pl_mean``, the ADA controller and ``step``.  Every file
 is written to a ``.tmp`` path and then renamed, so a snapshot on disk is
-whole.
+whole.  In a data-parallel run rank 0 writes (the ranks' states are
+identical, ``training/loop_aio.py``) and every rank reads the same file
+onto its own card.
 
 A JAX EMA snapshot is a pair ``<name>.msgpack`` + ``<name>.json``
 (``montage_gan_tpu/utils/checkpoint.py:57-87``): the JSON holds the
@@ -65,6 +67,28 @@ def save_ema_snapshot(path: str, cfg: MontageConfig, ema: MontageEnsemble,
 _OPTIMIZERS = ('opt_local_g', 'opt_local_d', 'opt_global_g', 'opt_global_d',
                'opt_renderer')
 _CONTROLLER = ('pl_mean', 'aug_p', 'ada_sign_sum', 'ada_sign_count')
+
+
+def train_state_tensors(state):
+    """``(name, tensor)`` of everything a train state holds, in one order
+    for every process: the ensemble's and the EMA's state dicts, every
+    optimizer's state tensors and the controller (what
+    ``parallel.mesh.replicate`` broadcasts and ``assert_replicated``
+    checks)."""
+    for prefix, module in (('model', state.model), ('ema', state.ema)):
+        for k, v in module.state_dict().items():
+            yield f'{prefix}.{k}', v
+    for name in _OPTIMIZERS:
+        opt = getattr(state, name)
+        opts = opt if isinstance(opt, list) else [] if opt is None else [opt]
+        for i, o in enumerate(opts):
+            for j, p in enumerate(p for g in o.param_groups
+                                  for p in g['params']):
+                for k, v in sorted(o.state.get(p, {}).items()):
+                    if isinstance(v, torch.Tensor):
+                        yield f'{name}.{i}.{j}.{k}', v
+    for name in _CONTROLLER:
+        yield name, getattr(state, name)
 
 
 def save_train_state(run_dir: str, kimg: int, state) -> str:

@@ -3,9 +3,11 @@
 Port of ``montage_gan_tpu/utils/training_stats.py`` (the reference's
 torch_utils/training_stats.py): per-name moment triples [n, Σx, Σx²], a
 Collector exposing mean/std, and the ``stats.jsonl`` and TensorBoard sinks,
-with the same names and records.  One process trains on one card, so there
-is no cross-device reduction; the loop reads a step's stats from the device
-once (``training/loop_aio.py``).
+with the same names and records.  The loop reads a step's stats from the
+device once (``training/loop_aio.py``).  Under data parallelism a
+``Collector`` sums every name's moments over the ranks when it updates (the
+reference's ``training_stats.py:261-262``), so rank 0 writes the ranks'
+statistics.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import json
 import re
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -45,15 +47,38 @@ class StatsAccumulator:
 
 class Collector:
     """Snapshot view over an accumulator
-    (reference contract: torch_utils/training_stats.py:150-215)."""
+    (reference contract: torch_utils/training_stats.py:150-215).  With
+    ``data_parallel`` (a ``parallel.mesh.DataParallel``) ``update`` is a
+    collective: every rank calls it, and every rank sees the moments summed
+    over the ranks."""
 
-    def __init__(self, accumulator: StatsAccumulator, regex: str = '.*'):
+    def __init__(self, accumulator: StatsAccumulator, regex: str = '.*',
+                 data_parallel: Optional[object] = None):
         self._acc = accumulator
         self._regex = re.compile(regex)
+        self._dp = data_parallel
         self._moments: Dict[str, np.ndarray] = {}
+
+    def _reduce(self, fresh: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """The moments of every name any rank reported, summed over the
+        ranks."""
+        import torch
+        import torch.distributed as dist
+        dp = self._dp
+        names = [None] * dp.world
+        dist.all_gather_object(names, sorted(fresh))
+        names = sorted(set().union(*names))
+        zero = np.zeros(3, np.float64)
+        m = torch.from_numpy(np.stack([fresh.get(n, zero) for n in names])
+                             if names else np.zeros((0, 3)))
+        m = m.to(dp.device)
+        dist.all_reduce(m)
+        return dict(zip(names, m.cpu().numpy()))
 
     def update(self) -> None:
         fresh = self._acc.pop()
+        if self._dp is not None:
+            fresh = self._reduce(fresh)
         for name, m in fresh.items():
             if self._regex.fullmatch(name):
                 self._moments[name] = m

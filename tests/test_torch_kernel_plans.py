@@ -258,3 +258,40 @@ VECTOR_CASES = [
 def test_vector_channels_step_with_one_wrap(n_vec, C, vec, stride):
     got = _vector_channels(n_vec, C, vec, stride)
     assert torch.equal(got, torch.arange(n_vec) * vec % C)
+
+
+# ---------------------------------------------------------------------------
+# The current device: every wrapper launches on it
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('device,current,ok', [
+    ('cuda:0', 0, True), ('cuda:1', 1, True), ('cuda:1', 0, False),
+    ('cuda:0', 3, False), ('cpu', 0, False)])
+def test_launch_needs_the_tensors_card_current(device, current, ok):
+    """``ops/cuda.py::check_current``, which each wrapper's
+    ``launch_device`` applies before a launch: a tensor's card must be the
+    current device (a rank of a data-parallel run makes its card current);
+    another card raises instead of launching there."""
+    from montage_gan_tpu_torch.ops.cuda import check_current
+    dev = torch.device(device)
+    if ok:
+        assert check_current(dev, current) == dev.index
+    else:
+        with pytest.raises(RuntimeError, match='current device'):
+            check_current(dev, current)
+
+
+def test_every_wrapper_launches_through_the_device_check():
+    """Each kernel wrapper module passes its launch's device through
+    ``launch_device`` and reads no device index around it."""
+    import inspect
+    from montage_gan_tpu_torch.ops import (affine_warp, bias_act, composite,
+                                           upfirdn2d)
+    for mod, n in ((bias_act, 2), (upfirdn2d, 1), (affine_warp, 1),
+                   (composite, 1)):
+        src = inspect.getsource(mod)
+        assert src.count('stream_handle(launch_device(') == n, mod.__name__
+        assert 'stream_handle(' not in src.replace(
+            'stream_handle(launch_device(', '').replace(
+            'import (CudaKernel, launch_device, stream_handle,', ''), \
+            mod.__name__

@@ -468,9 +468,7 @@ def test_train_aio_cli_needs_a_card_or_device_cpu(tiny_dataset, tmp_path):
     assert os.listdir(outdir) == []
 
 
-WAITING = {'--gpus': ['--gpus', '2'], '--coordinator': ['--coordinator',
-                                                        'h:1'],
-           '--metrics': ['--metrics', 'fid50k_full'],
+WAITING = {'--metrics': ['--metrics', 'fid50k_full'],
            '--renderer-import': ['--renderer-import', 'r.pth.tar'],
            '--resume': ['--resume', 'ffhq256']}
 
@@ -498,6 +496,9 @@ def test_train_aio_cli_flag_parity():
     assert not set(train_aio.NOT_PORTED) & ours
     assert set(train_aio.WAITING) <= ours & flags
     assert set(WAITING) == set(train_aio.WAITING)
+    # data parallelism is ported: both flags accepted, neither waits
+    assert {'--gpus', '--coordinator'} <= ours & flags
+    assert not {'--gpus', '--coordinator'} & set(train_aio.WAITING)
     with open(os.path.join(REPO, 'ROADMAP.md')) as f:
         roadmap = f.read()
     for flag in [*train_aio.NOT_PORTED, *train_aio.WAITING]:
@@ -508,13 +509,18 @@ def test_train_aio_cli_flag_parity():
 
 
 def test_loop_refuses_what_waits(tiny_dataset, tmp_path):
+    """In-training metrics wait (queue 1, item 6); ``num_devices`` is the
+    process group's world size, so 2 without a group of 2 ranks raises
+    (``cli/train_aio.py --gpus 2`` starts them)."""
     from montage_gan_tpu_torch.data.dataset import DatasetAIO
     ds = DatasetAIO(tiny_dataset)
-    for kw, item in ((dict(num_devices=2), 'item 4'),
-                     (dict(metrics=['fid50k_full']), 'item 6')):
-        with pytest.raises(NotImplementedError, match=item):
-            loop_aio.training_loop(str(tmp_path / 'r'), ds, device='cpu',
-                                   **kw)
+    with pytest.raises(NotImplementedError, match='item 6'):
+        loop_aio.training_loop(str(tmp_path / 'r'), ds, device='cpu',
+                               metrics=['fid50k_full'])
+    with pytest.raises(ValueError, match='num_devices=2, 1 rank'):
+        loop_aio.training_loop(str(tmp_path / 'r'), ds, device='cpu',
+                               num_devices=2)
+    assert not os.path.exists(str(tmp_path / 'r'))
 
 
 def test_loop_writes_a_profiler_trace(tiny_dataset, tmp_path, monkeypatch):
