@@ -86,13 +86,25 @@ Phases, in order; each raises on failure, and the script then exits non-zero:
    K1'-K4' exactly; the ranks' train states identical
    (``assert_replicated``); then config ``aio`` as it trains: a step
    timed, and the NCCL kernels' time in one more, profiled step.
+15. metrics: on the loop phase's dataset, with seeded random InceptionV3
+   and VGG16-LPIPS ``.npz`` files in a drop-in directory (so
+   ``build_extractor('auto')`` runs the real architectures): each detector
+   on the card against the CPU; ``calc_metric('fid2k')`` at config
+   ``aio``'s widths end to end (its seconds split into the dataset, the 2000
+   generated images and the Frechet distance; the generator's and
+   InceptionV3's images/s at batch 16; K1' and K2' launched exactly 125
+   sampling calls' counts); KID, PR and IS at 512 generated images and
+   ppl2_wend at 256 samples; ``cli/train_aio --metrics fid2k`` for one step
+   at batch 8, its ``metric-fid2k.jsonl`` and ``Metrics/fid2k`` checked;
+   the phase's peak memory.
 
-Each main path (6, 8, 10, 11, 13's CLI step and 6-step loops, and 14's
-steps) is driven with every launch count set to 0 just before it and read
-just after.  The last two lines are the card's name and
+Each main path (6, 8, 10, 11, 13's CLI step and 6-step loops, 14's steps
+and 15's fid2k) is driven with every launch count set to 0 just before it
+and read just after.  The last two lines are the card's name and
 power limit (from ``nvidia-smi``) and one JSON object, ``{"ok": true,
 "device": {...}}``; the line before them is ``{"kernels": [...]}``, and
-before it the loop's figures (``{"loop": ...}``) and the total seconds.
+before it the loop's figures (``{"loop": ...}``), the metrics' and the
+data-parallel step's, and the total seconds.
 """
 
 import copy
@@ -101,8 +113,10 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import sys
+import tempfile
 import time
 
 from montage_gan_tpu_torch.tools.ddp_check import spread
@@ -1428,7 +1442,7 @@ def check_restored(restored, saved):
         f'step {restored.step}')
 
 
-def phase_loop(card, kernels):
+def phase_loop(card, kernels, tmp):
     """The training CLI and loop at the reference's batch 32 on a synthetic
     dataset written in a temporary directory outside the repository (the
     snapshots are several GB), its PNGs with adaptive row filters as PIL
@@ -1439,10 +1453,9 @@ def phase_loop(card, kernels):
     without ``--batch-gpu`` (images/s of steps 2 on, data wait, peak
     memory; without accumulation "does not fit" is reported, not raised);
     the CLI again from the first run's snapshot; ``cli/generate`` from its
-    EMA snapshot; every snapshot's bytes and seconds from the runs' logs."""
+    EMA snapshot; every snapshot's bytes and seconds from the runs' logs.
+    Everything but the dataset (``tmp/layers``) is deleted at the end."""
     import dataclasses
-    import shutil
-    import tempfile
     import numpy as np
     import torch
     from montage_gan_tpu_torch.cli import generate, train_aio
@@ -1454,7 +1467,6 @@ def phase_loop(card, kernels):
     from montage_gan_tpu_torch.utils import checkpoint
     from montage_gan_tpu_torch.utils.png import read_png_rgba
 
-    tmp = tempfile.mkdtemp(prefix='mgt-loop-')
     out = {}
     try:
         data = os.path.join(tmp, 'layers')
@@ -1627,7 +1639,219 @@ def phase_loop(card, kernels):
         out['launches'] = launches
         out['snapshots'] = snapshots
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        for name in os.listdir(tmp):          # the snapshots: several GB
+            if name != 'layers':
+                shutil.rmtree(os.path.join(tmp, name), ignore_errors=True)
+    return out
+
+
+# Card against CPU for the detectors on the same images and weights:
+# float32 convolutions (TF32 off) in another order through 48 (InceptionV3)
+# and 13 (VGG16) layers; the pool3 features and VGG16's relu5_3 map within
+# TOL_DETECTOR of their largest CPU entry, and the LPIPS distance of two
+# images within TOL_DETECTOR relative.  The LPIPS features themselves are
+# each tap's unit vector along channels, ill-conditioned where a pixel's
+# activations are all near 0 (at random weights, many; even two CPU runs on
+# different thread counts differ there): they are held within
+# TOL_LPIPS_FEATURES of the largest entry.
+TOL_DETECTOR = 1e-4
+TOL_LPIPS_FEATURES = 1e-2
+METRIC_BATCH = 16
+# The reduced budgets of the other metrics here (the registry's are 50k).
+METRIC_REDUCED = 512
+METRIC_PPL = 256
+
+
+def phase_metrics(card, kernels, tmp, device='cuda'):
+    """The metrics path at config ``aio``'s widths on the loop phase's
+    dataset (``tmp/layers``): seeded random InceptionV3 and VGG16-LPIPS
+    ``.npz`` files in a drop-in directory, so ``build_extractor('auto')``
+    runs the real architectures; each detector on the card against the CPU;
+    ``calc_metric('fid2k')`` end to end (seconds, the generator and
+    InceptionV3 images/s at batch ``METRIC_BATCH``, the launches of K1' and
+    K2' on it, exactly ``expected_launches`` per generator batch); KID, PR
+    and IS at ``METRIC_REDUCED`` images and ppl2_wend at ``METRIC_PPL``
+    samples; ``cli/train_aio --metrics fid2k`` for one step to a network
+    snapshot (``metric-fid2k.jsonl`` and ``Metrics/fid2k`` checked); the
+    phase's peak memory."""
+    import math
+    import numpy as np
+    import torch
+    from montage_gan_tpu_torch.cli import train_aio
+    from montage_gan_tpu_torch.data.dataset import DatasetAIO
+    from montage_gan_tpu_torch.metrics import (features, metric_main,
+                                               metric_utils)
+    from montage_gan_tpu_torch.metrics.inception_score import compute_is
+    from montage_gan_tpu_torch.metrics.kernel_inception_distance import \
+        compute_kid
+    from montage_gan_tpu_torch.metrics.precision_recall import compute_pr
+    from montage_gan_tpu_torch.models.ensemble import MontageConfig
+    from montage_gan_tpu_torch.tools.ddp_check import (seeded_model,
+                                                       use_detectors,
+                                                       write_random_detectors)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    t0 = time.perf_counter()
+    use_detectors(os.path.join(tmp, 'weights'))
+    paths = write_random_detectors(os.environ['MGT_WEIGHTS_DIR'], SEED)
+    inception = features.build_extractor('auto', device=device)
+    lpips = features.build_extractor('auto_lpips', device=device)
+    if not (isinstance(inception, features.InceptionV3Features)
+            and isinstance(lpips, features.VGG16Features)):
+        raise AssertionError(f'the drop-in directory gave {inception.name}, '
+                             f'{lpips.name}')
+    log(f'[metrics] random-weight InceptionV3 and VGG16-LPIPS written to '
+        f'the drop-in directory and loaded in {time.perf_counter() - t0:.1f} '
+        f's; config aio, batch {METRIC_BATCH}')
+
+    # 1. each detector, card against CPU
+    rng = np.random.RandomState(SEED)
+    def against_cpu(label, fn, cpu_fn, x, tol):
+        with torch.no_grad():
+            ref = cpu_fn(x)
+            got = fn(x.to(device)).cpu()
+        err = (got - ref).abs().max().item() / ref.abs().max().item()
+        if not (torch.isfinite(got).all() and err <= tol):
+            raise AssertionError(f'{label}: card against CPU {err:.3g} of '
+                                 f'the largest entry (limit {tol})')
+        log(f'  ok  {label} {list(got.shape)}: card against CPU within '
+            f'{err:.3g} of the largest entry (limit {tol})')
+        out[f'card_vs_cpu {label}'] = err
+        return got, ref
+
+    def images(*shape):
+        return torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32))
+    against_cpu('InceptionV3 pool3, 256->299', inception,
+                features.InceptionV3Features(paths['inception'],
+                                             device='cpu'),
+                images(4, 256, 256, 3), TOL_DETECTOR)
+    cpu_lpips = features.VGG16Features(paths['vgg16'], device='cpu')
+    x = images(2, 256, 256, 3)
+    against_cpu('VGG16 relu5_3, 256', lambda t: lpips.net(
+        t, return_lpips=False), lambda t: cpu_lpips.net(
+        t, return_lpips=False), x, TOL_DETECTOR)
+    got, ref = against_cpu('VGG16-LPIPS features, 256', lpips, cpu_lpips, x,
+                           TOL_LPIPS_FEATURES)
+    d_ref = (ref[0] - ref[1]).square().sum().item()
+    d = (got[0] - got[1]).square().sum().item()
+    out['lpips_distance'] = dict(card=d, cpu=d_ref)
+    if not abs(d - d_ref) <= TOL_DETECTOR * d_ref:
+        raise AssertionError(f'LPIPS distance {d} on the card, {d_ref} on '
+                             'the CPU')
+    log(f'  ok  LPIPS distance of the two images {d:.8g} (CPU {d_ref:.8g}, '
+        f'limit {TOL_DETECTOR} relative)')
+    del cpu_lpips
+
+    # 2. fid2k end to end
+    cfg = MontageConfig()
+    model = seeded_model(cfg).to(device).eval().requires_grad_(False)
+    sample_fn, map_fn, synth_fn = metric_utils.ensemble_fns(model)
+    dataset = DatasetAIO(os.path.join(tmp, 'layers'))
+    common = dict(dataset=dataset, sample_fn=sample_fn, map_fn=map_fn,
+                  synth_fn=synth_fn, z_dim=cfg.z_dim, extractor=inception,
+                  batch_size=METRIC_BATCH, device=device,
+                  cache_dir=os.path.join(tmp, 'metric-cache'))
+    with torch.no_grad():                    # warm-up (cuDNN plans)
+        inception(metric_utils.images_to_metric_rgb(sample_fn(
+            metric_utils.generator_draws(1, 0, METRIC_BATCH,
+                                         cfg.z_dim).to(device))))
+    torch.cuda.synchronize()
+    marks = {}
+
+    def progress(tag, done, total):
+        torch.cuda.synchronize()
+        marks.setdefault(tag, []).append((done, time.perf_counter()))
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.reset()
+    t0 = time.perf_counter()
+    result = metric_main.calc_metric('fid2k', progress_fn=progress, **common)
+    fid_s = time.perf_counter() - t0
+    fid_peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {name: k.launches for name, k in kernels.items()}
+    batches = math.ceil(2000 / METRIC_BATCH)
+    expect = {name: batches * n
+              for name, n in expected_launches(model).items()}
+    for name, n in launches.items():
+        if n != expect.get(name, 0) or (name in expect and n == 0):
+            raise AssertionError(f'{name}: {n} launches in fid2k, expected '
+                                 f'{expect.get(name, 0)}')
+    fid = result.results['fid2k']
+    if not math.isfinite(fid) or fid < 0:
+        raise AssertionError(f'fid2k {fid}')
+    gen = marks['generator']
+    ips = (gen[-1][0] - gen[0][0]) / (gen[-1][1] - gen[0][1])
+    data_s = marks['dataset'][-1][1] - t0
+    gen_s = gen[-1][1] - marks['dataset'][-1][1]
+    out.update(fid2k=fid, fid2k_s=fid_s, fid2k_dataset_s=data_s,
+               fid2k_generator_s=gen_s,
+               fid2k_statistics_s=fid_s - data_s - gen_s,
+               generator_inception_images_per_s=ips, launches=launches,
+               fid2k_peak_gib=fid_peak)
+    log(f'  fid2k {fid:.6g} in {fid_s:.1f} s: the {len(dataset)} dataset '
+        f'samples {data_s:.2f} s, 2000 generated {gen_s:.1f} s '
+        f'({ips:.1f} images/s through the generator and InceptionV3 at '
+        f'batch {METRIC_BATCH}, batches 2-{batches}), the Frechet distance '
+        f'(sqrtm on the host) {fid_s - data_s - gen_s:.1f} s; peak memory '
+        f'{fid_peak:.2f} GiB  card: {card}')
+    log(f'  launches {launches}: exactly {batches} sampling calls\' '
+        f'{expected_launches(model)}')
+
+    # 3. the others at a reduced budget
+    opts = metric_main.MetricOptions(**common)
+    for name, fn in (('kid', lambda: compute_kid(opts, None, METRIC_REDUCED)),
+                     ('pr', lambda: compute_pr(opts, None, METRIC_REDUCED)),
+                     ('is', lambda: compute_is(opts, METRIC_REDUCED))):
+        t0 = time.perf_counter()
+        value = fn()
+        sec = time.perf_counter() - t0
+        if not np.all(np.isfinite(value)):
+            raise AssertionError(f'{name} {value}')
+        out[name] = dict(value=value, seconds=sec)
+        log(f'  {name} at {METRIC_REDUCED} generated images: {value} in '
+            f'{sec:.1f} s')
+    t0 = time.perf_counter()
+    ppl = metric_main.calc_metric('ppl2_wend', ppl_samples=METRIC_PPL,
+                                  **common).results['ppl2_wend']
+    sec = time.perf_counter() - t0
+    if not (math.isfinite(ppl) and ppl > 0):
+        raise AssertionError(f'ppl2_wend {ppl}')
+    out['ppl2_wend'] = dict(value=ppl, seconds=sec)
+    log(f'  ppl2_wend at {METRIC_PPL} samples (VGG16-LPIPS): {ppl:.6g} in '
+        f'{sec:.1f} s ({2 * METRIC_PPL / sec:.1f} images/s through the '
+        f'generator and VGG16)  card: {card}')
+    del model, opts, common, inception, lpips
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. the training CLI scoring its snapshot
+    runs = os.path.join(tmp, 'metric-runs')
+    t0 = time.perf_counter()
+    train_aio.main(['--outdir', runs, '--data', os.path.join(tmp, 'layers'),
+                    '--cfg', 'aio', '--batch', '8', '--run-once',
+                    '--metrics', 'fid2k', '--device', device])
+    cli_s = time.perf_counter() - t0
+    run_dir = os.path.join(runs, os.listdir(runs)[0])
+    with open(os.path.join(run_dir, 'metric-fid2k.jsonl')) as f:
+        record = json.loads(f.readline())
+    stats = read_stats(run_dir)[0]
+    if not (record['snapshot_pkl'].endswith('network-snapshot-000000.pt')
+            and stats['Metrics/fid2k']['mean'] == record['results']['fid2k']
+            and math.isfinite(record['results']['fid2k'])):
+        raise AssertionError(f'{run_dir}: {record}, '
+                             f'{stats.get("Metrics/fid2k")}')
+    out['cli'] = dict(fid2k=record['results']['fid2k'],
+                      fid2k_s=record['total_time'], command_s=cli_s)
+    shutil.rmtree(runs, ignore_errors=True)
+    log(f'  ok  cli/train_aio --batch 8 --run-once --metrics fid2k: '
+        f'metric-fid2k.jsonl and Metrics/fid2k {record["results"]["fid2k"]:.6g}'
+        f' (the EMA after one step), fid2k {record["total_time"]:.1f} s of '
+        f'{cli_s:.1f} s')
+    out['cli_peak_gib'] = torch.cuda.max_memory_allocated() / 2**30
+    log(f'  peak memory from fid2k to the CLI\'s end (its training step at '
+        f'batch 8) {out["cli_peak_gib"]:.2f} GiB  card: {card}')
     return out
 
 
@@ -1697,7 +1921,13 @@ def main():
     ddp = phase_ddp(card)
     gc.collect()
     torch.cuda.empty_cache()
-    loop = phase_loop(card, kernels)
+    tmp = tempfile.mkdtemp(prefix='mgt-loop-')
+    try:
+        loop = phase_loop(card, kernels, tmp)
+        metrics = phase_metrics(card, {k: kernels[k] for k in slice_kernels},
+                                tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     sources = {
         'bias_act': ('bias_act.cu', 'bias_act_kernel.py:39'),
@@ -1724,6 +1954,9 @@ def main():
             # the data-parallel steps, on each rank
             rows[-1]['launches_ddp_by_rank'] = [r['launches'][name]
                                                 for r in ddp]
+        if name in metrics['launches']:
+            # calc_metric('fid2k') at config aio: 125 sampling calls
+            rows[-1]['launches_fid2k'] = metrics['launches'][name]
         if row_loop is not None:
             # the training CLI's one accumulated step at batch 32 (and its
             # EMA grid), checked against expected_train_launches
@@ -1749,6 +1982,7 @@ def main():
         'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': lib}
     log(json.dumps({'loop': {k: v for k, v in loop.items()
                              if k != 'launches'}, 'card': card}))
+    log(json.dumps({'metrics': metrics, 'card': card}))
     log(json.dumps({'ddp': [{k: v for k, v in r.items()
                              if k not in ('expected', 'launches')}
                             for r in ddp], 'card': card}))

@@ -1,0 +1,49 @@
+"""One entry point: ``python -m montage_gan_tpu_torch <command> [args]``.
+
+The subcommands of ``montage_gan_tpu/__main__.py:34-46`` under the same
+names.  Those ported so far dispatch to their CLI (each also runs as
+``python -m montage_gan_tpu_torch.cli.<name>``); the others raise, naming
+the ROADMAP queue item they wait for.
+"""
+
+from __future__ import annotations
+
+import importlib
+import sys
+from typing import Optional, Sequence
+
+# command → the port's CLI module
+PORTED = {'train-aio': 'train_aio', 'generate': 'generate',
+          'calc-metrics': 'calc_metrics', 'check-weights': 'check_weights'}
+# the JAX package's other commands → the ROADMAP queue item they wait for
+WAITING = {'train': 'queue 1, item 7', 'run-recipe': 'queue 1, item 7',
+           'projector': 'queue 1, item 5', 'style-mixing': 'queue 1, item 5',
+           'dataset-tool': 'queue 1, item 7',
+           'export-model': 'queue 1, item 5',
+           'export-torch': 'queue 1, item 7',
+           'pretrain-renderer': 'queue 1, item 7',
+           'pretrain-stn': 'queue 1, item 7',
+           'compare-renderers': 'queue 1, item 5',
+           'convert-pickle': 'queue 1, item 7'}
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ('-h', '--help'):
+        print(__doc__)
+        print('commands: ' + ', '.join(PORTED) + '\nnot ported yet: '
+              + ', '.join(WAITING))
+        return None
+    command, rest = argv[0], argv[1:]
+    if command in WAITING:
+        raise NotImplementedError(f'{command}: not ported yet, ROADMAP '
+                                  f'{WAITING[command]}')
+    if command not in PORTED:
+        raise SystemExit(f'unknown command {command!r}; commands: '
+                         f'{", ".join([*PORTED, *WAITING])}')
+    cli = importlib.import_module(f'.cli.{PORTED[command]}', __package__)
+    return cli.main(rest)
+
+
+if __name__ == '__main__':
+    main()

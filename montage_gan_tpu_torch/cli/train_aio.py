@@ -9,7 +9,10 @@ versions of the kernels):
         [--cfg aio] [--batch 32] [--batch-gpu 16] [--gpus N] [--device cuda]
 
 It writes ``training_options.json``, ``log.txt`` and what the loop writes
-(``training/loop_aio.py``) into ``OUT/{id:05d}-{dataset}-{cfg}``.
+(``training/loop_aio.py``) into ``OUT/{id:05d}-{dataset}-{cfg}``;
+``--metrics fid2k,...`` (names of ``metrics/metric_main.py``) scores the
+EMA ensemble at every network snapshot into ``metric-<name>.jsonl`` and
+the stats' ``Metrics/<key>``.
 
 Data parallelism, one process per card: ``--gpus N`` (default: every
 visible card; 1 with ``--device cpu``) spawns N ranks on this host, which
@@ -69,8 +72,7 @@ NOT_PORTED = {'--merge-locals': 'queue 1, item 8',
               '--no-precompile': 'the TPU phase executor (not ported)'}
 # Accepted flags whose values other than the default raise until the
 # queue item named here is ported.
-WAITING = {'--metrics': 'queue 1, item 6 (a value other than none)',
-           '--renderer-import': 'queue 1, item 7',
+WAITING = {'--renderer-import': 'queue 1, item 7',
            '--resume': 'queue 1, item 7 (an alias or a URL)'}
 # --resume aliases of the JAX package (utils/url_util.py:28-34)
 RESUME_ALIASES = ('ffhq256', 'ffhq512', 'ffhq1024', 'celebahq256',
@@ -136,7 +138,9 @@ def make_parser() -> argparse.ArgumentParser:
     add('--snap', dest='img_snap', type=int, default=1)
     add('--net-snap', type=int, default=50)
     add('--seed', type=int, default=0)
-    add('--metrics', default='none', help='"none" (metrics are not ported)')
+    add('--metrics', default='none',
+        help='Comma-separated metrics scored at each network snapshot, or '
+             '"none"')
     add('--mirror', type=_bool, default=False)
     add('--cfg', choices=list(CFG_SPECS), default='aio')
     add('--gamma', type=float, default=None)
@@ -190,9 +194,15 @@ def _check_waiting(opts: EasyDict) -> None:
     if opts.renderer_import is not None:
         raise NotImplementedError(f'--renderer-import: ROADMAP '
                                   f'{WAITING["--renderer-import"]}')
-    if opts.metrics != 'none':
-        raise NotImplementedError(f'--metrics {opts.metrics}: '
-                                  f'ROADMAP {WAITING["--metrics"]}')
+
+
+def metric_list(opts: EasyDict) -> list:
+    """``--metrics`` as a list (``none``: empty); an unknown name raises,
+    listing the valid ones."""
+    from ..metrics import metric_main
+    if opts.metrics == 'none':
+        return []
+    return metric_main.check_metrics(opts.metrics.split(','))
 
 
 def num_ranks(opts: EasyDict) -> int:
@@ -296,6 +306,7 @@ def setup_training_loop_kwargs(opts: EasyDict,
         kimg_per_tick=opts.kimg_per_tick,
         image_snapshot_ticks=opts.img_snap,
         network_snapshot_ticks=opts.net_snap, random_seed=opts.seed,
+        metrics=metric_list(opts),
         resume_path=resume_path, num_devices=n_dev,
         run_once=opts.run_once, save_all_layers=opts.save_all_layers,
         run_latent_interpolation=opts.run_latent_interpolation,
@@ -307,6 +318,7 @@ def parse_options(argv: Optional[Sequence[str]] = None) -> EasyDict:
     the port raise."""
     opts = EasyDict(vars(make_parser().parse_args(argv)))
     _check_waiting(opts)
+    metric_list(opts)
     return opts
 
 

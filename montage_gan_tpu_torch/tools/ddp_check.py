@@ -1,6 +1,7 @@
 """Data-parallel training on every visible card, held to one process.
 
     python -m montage_gan_tpu_torch.tools.ddp_check [--ranks N] [--no-loop]
+        [--metrics-only]
 
 Full-width config ``aio`` (``MontageConfig()``), ``TrainHyper()`` defaults
 with augment ``bgcfnc`` at p 0.6, seeded random weights, synthetic reals,
@@ -39,6 +40,18 @@ every collective still runs).
    seconds and the replica check's seconds, from the run's ``stats.jsonl``
    and ``log.txt``.
 
+3. The metrics (``metrics_check``; alone with ``--metrics-only``):
+   ``cli/calc_metrics.py --gpus N`` against ``--gpus 1`` on an EMA snapshot
+   of config ``aio`` (seeded random weights, ``seeded_model``) and the
+   synthetic dataset, with seeded random InceptionV3 and VGG16-LPIPS
+   ``.npz`` files in a drop-in directory (``write_random_detectors``), so
+   the real architectures run: fid2k and ppl2_wend at ``METRIC_PPL``
+   samples.  Each rank's features and distances are the one process's
+   batches, so the results are held within ``TOL_METRIC`` relative (the
+   same float64 sums in the same order; only sqrtm's and the percentile
+   filter's inputs could differ, and they should not); the seconds of
+   each run.
+
 Prints one line per rank, a JSON summary ``{"ddp": ...}`` and the card's
 name and power limit; exits non-zero if any check fails.
 """
@@ -63,6 +76,12 @@ STEPS = 2
 SEED = 0
 LOOP_STEPS = 6
 LOOP_SAMPLES = 64
+METRIC_PPL = 512
+# R ranks against one process: each batch's features are computed by the
+# same code at the same shapes on a card of the same kind, and accumulated
+# in batch order, so they should be equal; a batch missing, doubled or out
+# of order moves a FID of 2000 samples by far more.
+TOL_METRIC = 1e-9
 # Data-parallel step against one process on the card, float32: the same
 # operations at another batch size per convolution, in another order (cuDNN
 # may pick other algorithms), move each sample's activations by a few 1e-6
@@ -343,6 +362,100 @@ def run_ranks(world: int) -> list:
         shutil.rmtree(outdir, ignore_errors=True)
 
 
+def write_random_detectors(dirpath: str, seed: int = 0) -> dict:
+    """Seeded random InceptionV3 and VGG16-LPIPS parameters as the drop-in
+    ``.npz`` files (``inception.npz``, ``vgg16.npz``) in ``dirpath``, where
+    ``MGT_WEIGHTS_DIR`` makes ``build_extractor('auto')`` and
+    ``('auto_lpips')`` find them: the detectors' architectures and costs,
+    not their features.  Returns the paths."""
+    from ..metrics import inception_net, vgg16_net
+    os.makedirs(dirpath, exist_ok=True)
+    paths = dict(inception=os.path.join(dirpath, 'inception.npz'),
+                 vgg16=os.path.join(dirpath, 'vgg16.npz'))
+    inception_net.save_params(inception_net.init_random(seed),
+                              paths['inception'])
+    vgg16_net.save_params(vgg16_net.init_random(seed), paths['vgg16'])
+    return paths
+
+
+def use_detectors(dirpath: str) -> None:
+    """Make this process (and the ranks it starts) find the detectors of
+    ``dirpath``."""
+    os.environ['MGT_WEIGHTS_DIR'] = dirpath
+    for env in ('MGT_INCEPTION_WEIGHTS', 'MGT_VGG16_WEIGHTS'):
+        os.environ.pop(env, None)
+
+
+def seeded_model(cfg, seed: int = SEED):
+    """``MontageEnsemble(cfg)`` with seeded weights and a small seeded shift
+    in the STN's zero-initialised head (``chip_smoke.py``'s sampling
+    path), on the CPU."""
+    from ..models.ensemble import MontageEnsemble
+    model = MontageEnsemble(cfg).init_weights(seed)
+    with torch.no_grad():
+        bias = model.stn.fc_loc[2].bias
+        bias.copy_(torch.randn(bias.shape, generator=torch.Generator()
+                               .manual_seed(seed + 2)) * 0.05)
+    return model
+
+
+def metrics_check(world: int, card: str, log=_say) -> dict:
+    """Section 3: ``calc_metrics --gpus world`` against ``--gpus 1``."""
+    from ..cli import calc_metrics
+    from ..data.synthetic import make_synthetic_layer_dataset
+    from ..models.ensemble import MontageConfig
+    from ..utils.checkpoint import save_checkpoint
+    tmp = tempfile.mkdtemp(prefix='mgt-ddp-metrics-')
+    try:
+        data = make_synthetic_layer_dataset(os.path.join(tmp, 'layers'),
+                                            num_samples=LOOP_SAMPLES)
+        use_detectors(os.path.join(tmp, 'weights'))
+        write_random_detectors(os.environ['MGT_WEIGHTS_DIR'])
+        cfg = MontageConfig()
+        model = seeded_model(cfg)
+        out, records = {}, {}
+        for n, name in ((1, 'one'), (world, 'ranks')):
+            d = os.path.join(tmp, name)
+            os.makedirs(d)
+            snap = os.path.join(d, 'ema-snapshot-000000.pt')
+            save_checkpoint(snap, cfg, model)
+            t0 = time.perf_counter()
+            calc_metrics.main(['--network', snap, '--data', data,
+                               '--metrics', 'fid2k,ppl2_wend',
+                               '--ppl-samples', str(METRIC_PPL), '--gpus',
+                               str(n), '--cache-dir',
+                               os.path.join(d, 'cache')])
+            out[f'{name}_s'] = time.perf_counter() - t0
+            records[name] = {}
+            for metric in ('fid2k', 'ppl2_wend'):
+                with open(os.path.join(d, f'metric-{metric}.jsonl')) as f:
+                    rec = json.loads(f.readline())
+                if rec['num_gpus'] != n:
+                    raise AssertionError(f'{metric}: {rec["num_gpus"]} '
+                                         f'ranks recorded, {n} started')
+                records[name].update(rec['results'])
+        for k, want in records['one'].items():
+            got = records['ranks'][k]
+            rel = abs(got - want) / max(abs(want), 1e-30)
+            out[k] = dict(one=want, ranks=got, rel=rel)
+            if not (np.isfinite(want) and rel <= TOL_METRIC):
+                raise AssertionError(f'{k}: {got} on {world} ranks, {want} '
+                                     f'in one process (limit {TOL_METRIC})')
+        log(f'[ddp metrics] calc_metrics fid2k,ppl2_wend (ppl {METRIC_PPL} '
+            f'samples), config aio, random-weight InceptionV3 and '
+            f'VGG16-LPIPS: --gpus {world} '
+            + ', '.join(f'{k} {v["ranks"]!r}' for k, v in out.items()
+                        if isinstance(v, dict))
+            + f'; --gpus 1 ' + ', '.join(
+                f'{k} {v["one"]!r} (rel {v["rel"]:.3g})'
+                for k, v in out.items() if isinstance(v, dict))
+            + f'; {out["ranks_s"]:.1f} s on {world} rank(s) against '
+            f'{out["one_s"]:.1f} s  card: {card}')
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def loop_check(world: int, card: str, log=_say) -> dict:
     """Section 2: ``train_aio --gpus world`` at ``PER_RANK · world``."""
     from ..cli import train_aio
@@ -415,7 +528,9 @@ def main(argv=None):
     ap.add_argument('--ranks', type=int, default=None,
                     help='cards to use (default: every visible card)')
     ap.add_argument('--no-loop', action='store_true',
-                    help='only the step (section 1)')
+                    help='without the loop (section 2)')
+    ap.add_argument('--metrics-only', action='store_true',
+                    help='only the metrics (section 3)')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('ddp_check: no CUDA device')
@@ -423,6 +538,15 @@ def main(argv=None):
     card = card_line()
     world = args.ranks or torch.cuda.device_count()
     t0 = time.perf_counter()
+    if args.metrics_only:
+        from ..ops import cuda
+        cuda.build()
+        summary = {'world': world, 'card': card,
+                   'metrics': metrics_check(world, card),
+                   'seconds': time.perf_counter() - t0}
+        print(json.dumps({'ddp': summary}))
+        print(card)
+        return
     _say(f'[ddp] {world} rank(s) of {torch.cuda.device_count()} cards, '
          f'{PER_RANK} images a rank, config aio  card: {card}')
     ranks = run_ranks(world)
@@ -461,6 +585,7 @@ def main(argv=None):
                'replicated': r0['replicated']}
     if not args.no_loop:
         summary['loop'] = loop_check(world, card)
+    summary['metrics'] = metrics_check(world, card)
     summary['seconds'] = time.perf_counter() - t0
     print(json.dumps({'ddp': summary}))
     print(card)

@@ -29,9 +29,17 @@ one is read by every rank.  Rank 0 alone prints and writes the options,
 snapshot first checks that the ranks' train states are identical, and the
 ranks wait for it at a barrier.
 
+Metrics (``metrics``, names of ``metrics/metric_main.py``): at each
+network snapshot the EMA ensemble is scored on the training dataset, as the
+JAX loop does (``montage_gan_tpu/training/loop_aio.py:410-474``): only with
+the global phases (FID needs the STN), PPL at 2000 samples, the dataset's
+statistics cached under ``<run_dir>/metric-cache``, each result appended to
+``metric-<name>.jsonl`` and reported as ``Metrics/<key>``.  Every rank runs
+the metric on its share of the batches (``metrics/metric_utils.py``), so
+no rank waits at the next collective for a whole evaluation.
+
 Not ported: the phase executor with its AOT precompile and
-``merge_locals`` (the TPU's dispatch machinery), and the in-training
-metrics (a non-empty ``metrics`` raises; ROADMAP queue 1, item 6).
+``merge_locals`` (the TPU's dispatch machinery).
 """
 
 from __future__ import annotations
@@ -250,10 +258,8 @@ def training_loop(
     ``run_once``, or until ``abort_fn()``); returns the final state.  With
     a process group up, this process is one rank of the data-parallel run
     (``num_devices``, where given, must be its world size)."""
-    if metrics:
-        raise NotImplementedError(
-            f'metrics {metrics}: in-training metrics wait for ROADMAP queue '
-            '1, item 6')
+    from ..metrics import metric_main
+    metrics = metric_main.check_metrics(metrics)
     dev = training_device(device)
     rank, world = process_info()
     if num_devices not in (None, world):
@@ -322,6 +328,7 @@ def training_loop(
                                             noise_mode='const')
             return out.float().cpu().numpy()
 
+        metric_extractor = None
         acc = StatsAccumulator()
         collector = Collector(acc, data_parallel=dp)
         if primary:
@@ -413,6 +420,7 @@ def training_loop(
                                 run_latent_interpolation)
 
             # network snapshot
+            snapshot_path = None
             if network_snapshot_ticks is not None and \
                     (done or cur_tick % network_snapshot_ticks == 0):
                 if dp is not None:
@@ -427,6 +435,7 @@ def training_loop(
                     path = ckpt.save_train_state(run_dir, kimg, state)
                     print(f'Saved {path}: {os.path.getsize(path)} bytes in '
                           f'{time.time() - t0:.2f} s')
+                    snapshot_path = path
                     path = os.path.join(run_dir,
                                         f'ema-snapshot-{kimg:06d}.pt')
                     t0 = time.time()
@@ -435,6 +444,17 @@ def training_loop(
                     print(f'Saved {path}: {os.path.getsize(path)} bytes in '
                           f'{time.time() - t0:.2f} s')
                 mesh.barrier(dp)
+
+            # metrics on the EMA ensemble (reference: training_loop_aio.py:
+            # 837-857; like the reference, FID needs the global path)
+            if metrics and cfg.train_global and \
+                    (done or (network_snapshot_ticks is not None
+                              and cur_tick % network_snapshot_ticks == 0)):
+                if metric_extractor is None:
+                    from ..metrics.features import build_extractor
+                    metric_extractor = build_extractor('auto', device=dev)
+                _score(metrics, state.ema, dataset, metric_extractor,
+                       run_dir, snapshot_path, acc, dev)
 
             collector.update()
             if jsonl is not None:
@@ -463,6 +483,27 @@ def training_loop(
             tb.close()
     say('Exiting...')
     return state
+
+
+def _score(metrics, ema, dataset, extractor, run_dir, snapshot_path, acc,
+           dev):
+    """Each metric of ``metrics`` on the EMA ensemble (every rank takes its
+    share; rank 0 writes ``metric-<name>.jsonl``), reported into ``acc`` as
+    ``Metrics/<key>`` on every rank (the collector averages the ranks'
+    equal values)."""
+    from ..metrics import metric_main
+    from ..metrics.metric_utils import ensemble_fns
+    sample_fn, map_fn, synth_fn = ensemble_fns(ema)
+    for metric in metrics:
+        result = metric_main.calc_metric(
+            metric, dataset=dataset, sample_fn=sample_fn, map_fn=map_fn,
+            synth_fn=synth_fn, ppl_samples=2000,  # in-training budget
+            z_dim=ema.cfg.z_dim, extractor=extractor,
+            cache_dir=os.path.join(run_dir, 'metric-cache'), device=dev)
+        metric_main.report_metric(result, run_dir=run_dir,
+                                  snapshot_pkl=snapshot_path)
+        for k, v in result.results.items():
+            acc.report(f'Metrics/{k}', v)
 
 
 def _image_snapshot(run_dir, cur_nimg, sample_fn, grid_z, grid_size, cfg,

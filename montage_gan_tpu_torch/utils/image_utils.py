@@ -49,6 +49,15 @@ def calc_psnr(x: torch.Tensor, y: torch.Tensor,
     return 10.0 * torch.log10(data_range ** 2 / mse)
 
 
+def blend_white_bg(images: torch.Tensor) -> torch.Tensor:
+    """RGBA [0, 1] ``[..., H, W, 4]`` → RGB [0, 1] over white (the
+    ``alpha_composite`` of a white layer and ``images``;
+    ``montage_gan_tpu/utils/image_utils.py:68-73``)."""
+    from ..ops.composite import alpha_composite
+    stack = torch.stack([torch.ones_like(images), images], dim=-4)
+    return alpha_composite(stack, layer_axis=-4)[..., :3]
+
+
 def stack_layer_to_channel(x: torch.Tensor) -> torch.Tensor:
     """[B, L, H, W, C] → [B, H, W, L*C] (channel index = l*C + c)."""
     b, l, h, w, c = x.shape

@@ -10,6 +10,11 @@ same conversion ``montage_gan_tpu/utils/torch_export.py`` makes):
   * the STN's first FC: the HWC-major flatten of its input → C-major
   * every resample_filter buffer is ``setup_filter([1, 3, 3, 1])``.
 
+The metrics' detectors cross by their ``.npz`` parameter dicts, which the
+port reads in the JAX package's layout (HWIO weights): ``inception_v3_from_jax``,
+``vgg16_from_jax`` and ``random_features_from_jax`` (the JAX
+``RandomFeatures._params`` list) build the port's modules from them.
+
 ``state_dict_from_jax`` takes the variables as nested dicts of numpy arrays
 (``mapping``, ``local_g[i]`` with ``params`` and ``noise``, ``stn`` and
 ``renderer``, as a JAX EMA snapshot holds them, and ``local_d[i]`` and
@@ -219,3 +224,27 @@ def state_dict_from_jax(cfg, tree: Dict[str, Any]) -> 'OrderedDict':
                                         cfg.renderer_type).items():
             out[f'renderer.{k}'] = v
     return out
+
+
+def inception_v3_from_jax(params: Dict[str, Any]):
+    """The port's ``metrics.inception_net.InceptionV3`` (on the CPU) from the
+    JAX package's InceptionV3 parameter dict (``inception_net.load_params``
+    or ``init_random``)."""
+    from ..metrics.inception_net import InceptionV3
+    return InceptionV3({k: np.asarray(v) for k, v in params.items()})
+
+
+def vgg16_from_jax(params: Dict[str, Any]):
+    """The port's ``metrics.vgg16_net.VGG16LPIPS`` (on the CPU) from the JAX
+    package's VGG16-LPIPS parameter dict."""
+    from ..metrics.vgg16_net import VGG16LPIPS
+    return VGG16LPIPS({k: np.asarray(v) for k, v in params.items()})
+
+
+def random_features_from_jax(params, device='cuda'):
+    """The port's ``metrics.features.RandomFeatures`` with the JAX package's
+    weights (``RandomFeatures._params``: the HWIO conv weights, then the
+    projection), on ``device``."""
+    from ..metrics.features import RandomFeatures
+    return RandomFeatures(weights=[np.asarray(p, np.float32) for p in params],
+                          device=device)

@@ -468,16 +468,22 @@ def test_train_aio_cli_needs_a_card_or_device_cpu(tiny_dataset, tmp_path):
     assert os.listdir(outdir) == []
 
 
-WAITING = {'--metrics': ['--metrics', 'fid50k_full'],
+WAITING = {'--metrics': ['--metrics', 'fid50k_fool'],
            '--renderer-import': ['--renderer-import', 'r.pth.tar'],
            '--resume': ['--resume', 'ffhq256']}
 
 
 @pytest.mark.parametrize('flag', sorted(WAITING))
 def test_train_aio_cli_flags_that_wait_raise(flag, tiny_dataset, tmp_path):
-    with pytest.raises(NotImplementedError, match='queue 1, item'):
+    """A flag whose value waits for a ROADMAP item raises naming it;
+    ``--metrics`` no longer waits (the metrics are ported), and a name that
+    is no metric raises listing the valid ones."""
+    error, match = ((ValueError, 'valid: fid50k_full') if flag == '--metrics'
+                    else (NotImplementedError, 'queue 1, item'))
+    with pytest.raises(error, match=match):
         train_aio.main(['--outdir', str(tmp_path / 'runs'), '--data',
                         tiny_dataset, '--device', 'cpu', *WAITING[flag]])
+    assert not os.path.exists(str(tmp_path / 'runs'))
 
 
 def test_train_aio_cli_flag_parity():
@@ -495,7 +501,9 @@ def test_train_aio_cli_flag_parity():
     assert not missing, missing
     assert not set(train_aio.NOT_PORTED) & ours
     assert set(train_aio.WAITING) <= ours & flags
-    assert set(WAITING) == set(train_aio.WAITING)
+    # the metrics are ported: --metrics is accepted and waits no more
+    assert set(WAITING) - {'--metrics'} == set(train_aio.WAITING)
+    assert '--metrics' in ours & flags
     # data parallelism is ported: both flags accepted, neither waits
     assert {'--gpus', '--coordinator'} <= ours & flags
     assert not {'--gpus', '--coordinator'} & set(train_aio.WAITING)
@@ -509,14 +517,15 @@ def test_train_aio_cli_flag_parity():
 
 
 def test_loop_refuses_what_waits(tiny_dataset, tmp_path):
-    """In-training metrics wait (queue 1, item 6); ``num_devices`` is the
+    """A metric name that is none of the registry's raises before anything
+    is written (the metrics themselves are ported); ``num_devices`` is the
     process group's world size, so 2 without a group of 2 ranks raises
     (``cli/train_aio.py --gpus 2`` starts them)."""
     from montage_gan_tpu_torch.data.dataset import DatasetAIO
     ds = DatasetAIO(tiny_dataset)
-    with pytest.raises(NotImplementedError, match='item 6'):
+    with pytest.raises(ValueError, match='valid: fid50k_full'):
         loop_aio.training_loop(str(tmp_path / 'r'), ds, device='cpu',
-                               metrics=['fid50k_full'])
+                               metrics=['fid50k_fool'])
     with pytest.raises(ValueError, match='num_devices=2, 1 rank'):
         loop_aio.training_loop(str(tmp_path / 'r'), ds, device='cpu',
                                num_devices=2)
