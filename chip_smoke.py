@@ -90,9 +90,11 @@ Phases, in order; each raises on failure, and the script then exits non-zero:
    and VGG16-LPIPS ``.npz`` files in a drop-in directory (so
    ``build_extractor('auto')`` runs the real architectures): each detector
    on the card against the CPU; ``calc_metric('fid2k')`` at config
-   ``aio``'s widths end to end (its seconds split into the dataset, the 2000
-   generated images and the Frechet distance; the generator's and
-   InceptionV3's images/s at batch 16; K1' and K2' launched exactly 125
+   ``aio``'s widths end to end, after one of its batch-16 samples through
+   K1' and K2' is held to the plain route on the card (its seconds split
+   into the dataset, the 2000 generated images and the Frechet distance;
+   the generator's and InceptionV3's images/s at batch 16; K1' and K2'
+   launched exactly 125
    sampling calls' counts); KID, PR and IS at 512 generated images and
    ppl2_wend at 256 samples; ``cli/train_aio --metrics fid2k`` for one step
    at batch 8, its ``metric-fid2k.jsonl`` and ``Metrics/fid2k`` checked;
@@ -107,6 +109,7 @@ before it the loop's figures (``{"loop": ...}``), the metrics' and the
 data-parallel step's, and the total seconds.
 """
 
+import contextlib
 import copy
 import gc
 import json
@@ -714,7 +717,7 @@ def perturb_zero_init(model, generator, scale):
 
 def phase_slice(card, kernels, cfg, device='cuda'):
     import torch
-    from montage_gan_tpu_torch.models.ensemble import MontageEnsemble
+    from montage_gan_tpu_torch.tools.seeded import seeded_model
     from montage_gan_tpu_torch.utils.serving import build_inference_fn
 
     log(f'[slice] config aio: {cfg.num_layers} layers, base '
@@ -724,12 +727,7 @@ def phase_slice(card, kernels, cfg, device='cuda'):
         f'num_fp16_res {cfg.num_fp16_res}, {cfg.stn_stages} STN stages, '
         f'batch {BATCH}')
     t0 = time.perf_counter()
-    model = MontageEnsemble(cfg).init_weights(SEED)
-    with torch.no_grad():    # the STN's zero-init head: a small seeded shift
-        bias = model.stn.fc_loc[2].bias
-        bias.copy_(torch.randn(bias.shape, generator=torch.Generator()
-                               .manual_seed(SEED + 2)) * 0.05)
-    model = model.to(device).eval().requires_grad_(False)
+    model = seeded_model(cfg, SEED).to(device).eval().requires_grad_(False)
     n_params = sum(p.numel() for p in model.parameters())
     log(f'  init {time.perf_counter() - t0:.1f} s, {n_params} parameters')
 
@@ -1657,9 +1655,93 @@ def phase_loop(card, kernels, tmp):
 TOL_DETECTOR = 1e-4
 TOL_LPIPS_FEATURES = 1e-2
 METRIC_BATCH = 16
+# One metric batch, kernels against the plain route on the card (the same
+# weights, z and cuDNN convolutions), on what the extractor reads (RGB in
+# [0, 255]).  With float32 blocks the two agree within TOL_CROSS.  With config aio's bfloat16 blocks
+# K1' rounds its output once where the plain version rounds after every
+# step (TOL_BF16), and at random weights those ulps grow through the later
+# layers to a mean of about 0.4 of 255; there the kernels' mean distance
+# from the float32 run may exceed the plain route's by no more than
+# TOL_METRIC_RATIO (the run prints the ratio; PERF.md has it).
+TOL_METRIC_RATIO = 1.05
 # The reduced budgets of the other metrics here (the registry's are 50k).
 METRIC_REDUCED = 512
 METRIC_PPL = 256
+
+
+@contextlib.contextmanager
+def plain_route():
+    """Every op of ``montage_gan_tpu_torch.ops`` takes its plain PyTorch
+    version, on the card's tensors too: the reference that
+    ``check_metric_batch`` holds the kernels to."""
+    from montage_gan_tpu_torch.ops import (affine_warp, bias_act, composite,
+                                           upfirdn2d)
+    mods = (affine_warp, bias_act, composite, upfirdn2d)
+    saved = [m.takes_plain for m in mods]
+    for m in mods:
+        m.takes_plain = lambda x: True
+    try:
+        yield
+    finally:
+        for m, fn in zip(mods, saved):
+            m.takes_plain = fn
+
+
+def check_metric_batch(model, model32, z, kernels):
+    """One metric batch ``sample_fn(z)`` (``metric_utils.ensemble_fns``)
+    through K1' and K2' (exactly ``expected_launches`` of each model) and
+    through the plain route (no launch), on the extractor's input, for
+    ``model`` and for ``model32``, the same weights with float32 blocks:
+    ``model32``'s two routes within ``TOL_CROSS``; ``model``'s kernels no
+    further from ``model32``'s result than ``TOL_METRIC_RATIO`` times its
+    plain route's mean distance.  Returns the figures."""
+    import torch
+    from montage_gan_tpu_torch.metrics import metric_utils
+
+    def routes(m):
+        sample_fn = metric_utils.ensemble_fns(m)[0]
+        for k in kernels.values():
+            k.reset()
+        with torch.no_grad():
+            got = metric_utils.images_to_metric_rgb(sample_fn(z))
+            launched = {name: k.launches for name, k in kernels.items()}
+            with plain_route():
+                ref = metric_utils.images_to_metric_rgb(sample_fn(z))
+        torch.cuda.synchronize()
+        expect = expected_launches(m)
+        plain = {name: k.launches - launched[name]
+                 for name, k in kernels.items()}
+        if launched != {name: expect.get(name, 0) for name in kernels} or \
+                any(plain.values()) or not torch.isfinite(got).all():
+            raise AssertionError(f'metric batch: launches {launched} through '
+                                 f'the kernels (expected {expect}), {plain} '
+                                 'through the plain route')
+        return got, ref, launched
+
+    got32, ref32, launched = routes(model32)
+    err32 = (got32 - ref32).abs().max().item()
+    torch.testing.assert_close(got32, ref32, **TOL_CROSS,
+                               msg=lambda m: f'metric batch, float32: {m}')
+    got, ref, _ = routes(model)
+    dist_k = (got - got32).abs().mean().item()
+    dist_p = (ref - got32).abs().mean().item()
+    diff = (got - ref).abs()
+    out = dict(f32_max_abs_err=err32, bf16_max_abs_err=diff.max().item(),
+               bf16_mean_abs_err=diff.mean().item(),
+               bf16_mean_from_f32=dict(kernels=dist_k, plain=dist_p))
+    log(f'  ok  metric batch {list(got.shape)} (the extractor\'s RGB in '
+        f'[0, 255]) through K1\' and K2\' {launched} and through the plain '
+        f'route on the card: float32 blocks max_abs_err {err32:.3g} (atol '
+        f'{TOL_CROSS["atol"]}); bfloat16 blocks max {out["bf16_max_abs_err"]:.4g}, '
+        f'mean {out["bf16_mean_abs_err"]:.4g}, the mean distance from the '
+        f'float32 run {dist_k:.6g} through the kernels, {dist_p:.6g} through '
+        f'the plain route (ratio {dist_k / dist_p:.4f}, limit '
+        f'{TOL_METRIC_RATIO})')
+    if not dist_k <= TOL_METRIC_RATIO * dist_p:
+        raise AssertionError(f'metric batch, bfloat16: the kernels\' mean '
+                             f'distance from the float32 run {dist_k:.6g}, '
+                             f'the plain route\'s {dist_p:.6g}')
+    return out
 
 
 def phase_metrics(card, kernels, tmp, device='cuda'):
@@ -1667,7 +1749,8 @@ def phase_metrics(card, kernels, tmp, device='cuda'):
     dataset (``tmp/layers``): seeded random InceptionV3 and VGG16-LPIPS
     ``.npz`` files in a drop-in directory, so ``build_extractor('auto')``
     runs the real architectures; each detector on the card against the CPU;
-    ``calc_metric('fid2k')`` end to end (seconds, the generator and
+    one batch of ``METRIC_BATCH`` samples, kernels against the plain route
+    and a float32 run (``check_metric_batch``); ``calc_metric('fid2k')`` end to end (seconds, the generator and
     InceptionV3 images/s at batch ``METRIC_BATCH``, the launches of K1' and
     K2' on it, exactly ``expected_launches`` per generator batch); KID, PR
     and IS at ``METRIC_REDUCED`` images and ppl2_wend at ``METRIC_PPL``
@@ -1686,9 +1769,9 @@ def phase_metrics(card, kernels, tmp, device='cuda'):
         compute_kid
     from montage_gan_tpu_torch.metrics.precision_recall import compute_pr
     from montage_gan_tpu_torch.models.ensemble import MontageConfig
-    from montage_gan_tpu_torch.tools.ddp_check import (seeded_model,
-                                                       use_detectors,
-                                                       write_random_detectors)
+    from montage_gan_tpu_torch.tools.seeded import (seeded_model,
+                                                    use_detectors,
+                                                    write_random_detectors)
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -1746,7 +1829,7 @@ def phase_metrics(card, kernels, tmp, device='cuda'):
 
     # 2. fid2k end to end
     cfg = MontageConfig()
-    model = seeded_model(cfg).to(device).eval().requires_grad_(False)
+    model = seeded_model(cfg, SEED).to(device).eval().requires_grad_(False)
     sample_fn, map_fn, synth_fn = metric_utils.ensemble_fns(model)
     dataset = DatasetAIO(os.path.join(tmp, 'layers'))
     common = dict(dataset=dataset, sample_fn=sample_fn, map_fn=map_fn,
@@ -1758,6 +1841,13 @@ def phase_metrics(card, kernels, tmp, device='cuda'):
             metric_utils.generator_draws(1, 0, METRIC_BATCH,
                                          cfg.z_dim).to(device))))
     torch.cuda.synchronize()
+    # fid2k's first batch
+    model32 = seeded_model(MontageConfig(num_fp16_res=0), SEED).to(
+        device).eval().requires_grad_(False)
+    out['metric_batch_vs_plain'] = check_metric_batch(
+        model, model32, metric_utils.generator_draws(
+            0, 0, METRIC_BATCH, cfg.z_dim).to(device), kernels)
+    del model32
     marks = {}
 
     def progress(tag, done, total):

@@ -4,8 +4,7 @@ port of ``montage_gan_tpu/metrics/kernel_inception_distance.py``).
 
 The subsets are the numpy ``RandomState(seed)`` draws of the JAX package;
 the kernel sums run in torch in float64 on the features' device
-(``compute_kid_torch``), with the JAX package's numpy function
-(``compute_kid_from_features``) kept as their plain version."""
+(``compute_kid_torch``)."""
 
 from __future__ import annotations
 
@@ -15,28 +14,12 @@ import torch
 from . import metric_utils
 
 
-def compute_kid_from_features(real: np.ndarray, gen: np.ndarray,
-                              num_subsets: int = 100,
-                              max_subset_size: int = 1000,
-                              seed: int = 0) -> float:
-    n = real.shape[1]
-    m = min(min(real.shape[0], gen.shape[0]), max_subset_size)
-    rng = np.random.RandomState(seed)
-    t = 0.0
-    for _ in range(num_subsets):
-        x = gen[rng.choice(gen.shape[0], m, replace=False)]
-        y = real[rng.choice(real.shape[0], m, replace=False)]
-        a = (x @ x.T / n + 1) ** 3 + (y @ y.T / n + 1) ** 3
-        b = (x @ y.T / n + 1) ** 3
-        t += (a.sum() - np.trace(a)) / (m - 1) - b.sum() * 2 / m
-    return float(t / num_subsets / m)
-
-
 def compute_kid_torch(real: torch.Tensor, gen: torch.Tensor,
                       num_subsets: int = 100, max_subset_size: int = 1000,
                       seed: int = 0) -> float:
-    """``compute_kid_from_features`` on the features' device, in float64,
-    with the same subsets."""
+    """The unbiased MMD² of the cubic polynomial kernel, averaged over
+    ``num_subsets`` subsets of ``min(rows, max_subset_size)`` rows of each
+    set, on the features' device in float64."""
     real, gen = real.to(torch.float64), gen.to(torch.float64)
     n = real.shape[1]
     m = min(min(real.shape[0], gen.shape[0]), max_subset_size)

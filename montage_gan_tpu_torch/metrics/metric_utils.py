@@ -293,17 +293,23 @@ def compute_feature_stats_for_dataset(dataset, extractor,
     metric_utils.py:192-246); cached in ``cache_dir`` by options hash,
     written by rank 0.  Each batch is decoded to uint8 on the host and
     mapped to [0, 1] (``/ 255`` in float32, as ``DatasetAIO[i]`` does) and
-    composited on the device."""
+    composited on the device.  Where rank 0 holds the cache file, rank 0
+    alone loads it and the other ranks get empty statistics: a metric reads
+    the real data's statistics on rank 0 only (``on_primary``)."""
     dev = torch.device(device)
     dp = data_parallel(dev)
+    n = len(dataset) if max_items is None else min(len(dataset), max_items)
     cache_file = None
     if cache_dir is not None:
         cache_file = dataset_cache_file(dataset, extractor, max_items,
                                         cache_dir, stats_kwargs)
         if mesh.broadcast_flag(os.path.exists(cache_file), dp):
-            return FeatureStats.load(cache_file, device=dev)
+            if dp is None or dp.rank == 0:
+                return FeatureStats.load(cache_file, device=dev)
+            # the file is rank 0's: another rank's cache_dir may be another
+            # run directory, or on another host
+            return FeatureStats(max_items=n, device=dev, **stats_kwargs)
 
-    n = len(dataset) if max_items is None else min(len(dataset), max_items)
     stats = FeatureStats(max_items=n, device=dev, **stats_kwargs)
     num_batches = math.ceil(n / batch_size)
     with ThreadPoolExecutor(max_workers=DECODE_THREADS,

@@ -4,49 +4,17 @@ contract: metrics/precision_recall.py:20-65; port of
 
 The pairwise distances run in torch on the features' device, a block of
 rows at a time (at 50k × 50k the whole matrix would be 10 GB), in float64
-rounded to float32 before the comparisons; the JAX package's numpy
-functions stay as their plain version (which computes in the features'
-dtype)."""
+rounded to float32 before the comparisons, where the JAX package's numpy
+path keeps the float32 matrix on the host."""
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from . import metric_utils
 
 # Rows of the distance matrix a block (50k columns of float64: 3.3 GB).
 BLOCK_ROWS = 8192
-
-
-def _pairwise_sq_dists(a: np.ndarray, b: np.ndarray,
-                       batch: int = 4096) -> np.ndarray:
-    out = np.empty((a.shape[0], b.shape[0]), np.float32)
-    b_sq = np.sum(b ** 2, axis=1)
-    for i in range(0, a.shape[0], batch):
-        aa = a[i:i + batch]
-        out[i:i + batch] = (np.sum(aa ** 2, axis=1)[:, None]
-                            - 2 * aa @ b.T + b_sq[None])
-    return out
-
-
-def _manifold_radii(feats: np.ndarray, nhood_size: int) -> np.ndarray:
-    d = _pairwise_sq_dists(feats, feats)
-    # kth smallest distance excluding self (self dist = 0 is the 0th)
-    return np.partition(d, nhood_size, axis=1)[:, nhood_size]
-
-
-def _fraction_in_manifold(probes: np.ndarray, manifold: np.ndarray,
-                          radii: np.ndarray) -> float:
-    d = _pairwise_sq_dists(probes, manifold)
-    return float(np.mean(np.any(d <= radii[None, :], axis=1)))
-
-
-def compute_pr_from_features(real: np.ndarray, gen: np.ndarray,
-                             nhood_size: int = 3):
-    precision = _fraction_in_manifold(gen, real, _manifold_radii(real, nhood_size))
-    recall = _fraction_in_manifold(real, gen, _manifold_radii(gen, nhood_size))
-    return precision, recall
 
 
 def _dist_blocks(a: torch.Tensor, b: torch.Tensor):
@@ -78,7 +46,9 @@ def fraction_in_manifold_torch(probes: torch.Tensor, manifold: torch.Tensor,
 
 def compute_pr_torch(real: torch.Tensor, gen: torch.Tensor,
                      nhood_size: int = 3):
-    """``compute_pr_from_features`` on the features' device."""
+    """(precision, recall) of ``gen`` against ``real``: the share of each
+    set's rows inside the other's k-NN manifold (``nhood_size``-th nearest
+    neighbour radii), on the features' device."""
     real, gen = real.to(torch.float64), gen.to(torch.float64)
     precision = fraction_in_manifold_torch(
         gen, real, manifold_radii_torch(real, nhood_size))

@@ -362,57 +362,21 @@ def run_ranks(world: int) -> list:
         shutil.rmtree(outdir, ignore_errors=True)
 
 
-def write_random_detectors(dirpath: str, seed: int = 0) -> dict:
-    """Seeded random InceptionV3 and VGG16-LPIPS parameters as the drop-in
-    ``.npz`` files (``inception.npz``, ``vgg16.npz``) in ``dirpath``, where
-    ``MGT_WEIGHTS_DIR`` makes ``build_extractor('auto')`` and
-    ``('auto_lpips')`` find them: the detectors' architectures and costs,
-    not their features.  Returns the paths."""
-    from ..metrics import inception_net, vgg16_net
-    os.makedirs(dirpath, exist_ok=True)
-    paths = dict(inception=os.path.join(dirpath, 'inception.npz'),
-                 vgg16=os.path.join(dirpath, 'vgg16.npz'))
-    inception_net.save_params(inception_net.init_random(seed),
-                              paths['inception'])
-    vgg16_net.save_params(vgg16_net.init_random(seed), paths['vgg16'])
-    return paths
-
-
-def use_detectors(dirpath: str) -> None:
-    """Make this process (and the ranks it starts) find the detectors of
-    ``dirpath``."""
-    os.environ['MGT_WEIGHTS_DIR'] = dirpath
-    for env in ('MGT_INCEPTION_WEIGHTS', 'MGT_VGG16_WEIGHTS'):
-        os.environ.pop(env, None)
-
-
-def seeded_model(cfg, seed: int = SEED):
-    """``MontageEnsemble(cfg)`` with seeded weights and a small seeded shift
-    in the STN's zero-initialised head (``chip_smoke.py``'s sampling
-    path), on the CPU."""
-    from ..models.ensemble import MontageEnsemble
-    model = MontageEnsemble(cfg).init_weights(seed)
-    with torch.no_grad():
-        bias = model.stn.fc_loc[2].bias
-        bias.copy_(torch.randn(bias.shape, generator=torch.Generator()
-                               .manual_seed(seed + 2)) * 0.05)
-    return model
-
-
 def metrics_check(world: int, card: str, log=_say) -> dict:
     """Section 3: ``calc_metrics --gpus world`` against ``--gpus 1``."""
     from ..cli import calc_metrics
     from ..data.synthetic import make_synthetic_layer_dataset
     from ..models.ensemble import MontageConfig
     from ..utils.checkpoint import save_checkpoint
+    from .seeded import seeded_model, use_detectors, write_random_detectors
     tmp = tempfile.mkdtemp(prefix='mgt-ddp-metrics-')
     try:
         data = make_synthetic_layer_dataset(os.path.join(tmp, 'layers'),
                                             num_samples=LOOP_SAMPLES)
         use_detectors(os.path.join(tmp, 'weights'))
-        write_random_detectors(os.environ['MGT_WEIGHTS_DIR'])
+        write_random_detectors(os.environ['MGT_WEIGHTS_DIR'], SEED)
         cfg = MontageConfig()
-        model = seeded_model(cfg)
+        model = seeded_model(cfg, SEED)
         out, records = {}, {}
         for n, name in ((1, 'one'), (world, 'ranks')):
             d = os.path.join(tmp, name)

@@ -252,7 +252,6 @@ def test_kid_matches_jax():
     got = tkid.compute_kid_torch(torch.from_numpy(real),
                                  torch.from_numpy(gen), **kw)
     np.testing.assert_allclose(got, ref, rtol=1e-10, atol=1e-14)
-    assert tkid.compute_kid_from_features(real, gen, **kw) == ref
 
 
 def test_is_matches_jax():
@@ -277,7 +276,6 @@ def test_pr_matches_jax(nhood, monkeypatch):
                                nhood)
     np.testing.assert_allclose(got, ref, rtol=1e-10, atol=0)
     assert 0 < ref[0] < 1 and 0 < ref[1] < 1
-    assert tpr.compute_pr_from_features(real, gen, nhood) == ref
 
 
 def test_feature_stats_match_jax(tmp_path):

@@ -8,7 +8,10 @@ images in batches of 8: the last cut) and PPL's distances (10 in batches of
 4) of a micro ensemble, each through a 64-feature random pyramid.  Every
 feature, distance and float64 sum is held to one process's bit for bit; the
 FID and PPL that rank 0 computes reach both ranks; rank 0 alone writes the
-dataset cache and the metric record.  ``calc_metrics --gpus 2`` is held to
+dataset cache and the metric record.  Each rank is given a cache directory
+of its own (as the training loop gives each rank its run directory, which
+a rank started with ``--coordinator`` picks for itself), and a second FID
+reads rank 0's cache on rank 0 alone.  ``calc_metrics --gpus 2`` is held to
 ``--gpus 1`` on a snapshot of the same ensemble, exactly.  The spawned
 processes run one thread each, as this process does (a convolution's sums
 may split otherwise).
@@ -58,8 +61,9 @@ def _model():
 
 def compute_all(data, cache_dir):
     """What a rank (or the one process) computes: the loops' statistics,
-    PPL's distances, a FID of 12 images and a PPL through
-    ``calc_metric``."""
+    PPL's distances, a FID of 12 images, the same FID again (the dataset's
+    statistics from ``cache_dir``, which the first one wrote) and a PPL
+    through ``calc_metric``."""
     torch.set_num_threads(1)
     ex, model = _extractor(), _model().eval()
     sample_fn, map_fn, synth_fn = metric_utils.ensemble_fns(model)
@@ -80,8 +84,9 @@ def compute_all(data, cache_dir):
     kw = dict(dataset=ds, sample_fn=sample_fn, map_fn=map_fn,
               synth_fn=synth_fn, z_dim=16, extractor=ex, batch_size=4,
               device='cpu', cache_dir=cache_dir, ppl_samples=10)
-    out['fid'] = frechet_inception_distance.compute_fid(
-        metric_main.MetricOptions(**kw), max_real=None, num_gen=12)
+    for name in ('fid', 'fid_cached'):
+        out[name] = frechet_inception_distance.compute_fid(
+            metric_main.MetricOptions(**kw), max_real=None, num_gen=12)
     result = metric_main.calc_metric('ppl2_wend', **kw)
     out['ppl2_wend'], out['num_gpus'] = dict(result.results), result.num_gpus
     return out
@@ -91,7 +96,7 @@ def _rank_worker(rank, port, data, tmp):
     distributed.maybe_initialize(f'localhost:{port}', WORLD, rank,
                                  device='cpu')
     try:
-        out = compute_all(data, os.path.join(tmp, 'cache-ranks'))
+        out = compute_all(data, os.path.join(tmp, f'cache-rank{rank}'))
         metric_main.report_metric(metric_main.calc_metric(
             'ppl2_wend', z_dim=16, device='cpu', extractor=_extractor(),
             ppl_samples=4, batch_size=2,
@@ -171,7 +176,7 @@ def test_ppl_distances_equal_one_process(runs, rank):
     assert got.shape == (10,) and torch.equal(got, want)
 
 
-@pytest.mark.parametrize('metric', ['fid', 'ppl2_wend'])
+@pytest.mark.parametrize('metric', ['fid', 'fid_cached', 'ppl2_wend'])
 def test_every_rank_returns_the_one_process_result(runs, metric):
     want = runs['one'][metric]
     assert all(r[metric] == want for r in runs['ranks'])
@@ -181,13 +186,14 @@ def test_every_rank_returns_the_one_process_result(runs, metric):
 
 def test_rank_0_alone_writes(runs):
     tmp = runs['tmp']
-    assert len(os.listdir(os.path.join(tmp, 'cache-ranks'))) == 1
+    assert len(os.listdir(os.path.join(tmp, 'cache-rank0'))) == 1
+    assert not os.path.exists(os.path.join(tmp, 'cache-rank1'))
     assert os.listdir(os.path.join(tmp, 'report0')) == [
         'metric-ppl2_wend.jsonl']
     assert os.listdir(os.path.join(tmp, 'report1')) == []
     # the cached statistics are the one process's
     ranks, one = (os.path.join(tmp, d, os.listdir(os.path.join(tmp, d))[0])
-                  for d in ('cache-ranks', 'cache-one'))
+                  for d in ('cache-rank0', 'cache-one'))
     assert os.path.basename(ranks) == os.path.basename(one)
     ranks, one = (metric_utils.FeatureStats.load(p) for p in (ranks, one))
     assert ranks.num_items == one.num_items == 7
