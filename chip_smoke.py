@@ -99,14 +99,31 @@ Phases, in order; each raises on failure, and the script then exits non-zero:
    ppl2_wend at 256 samples; ``cli/train_aio --metrics fid2k`` for one step
    at batch 8, its ``metric-fid2k.jsonl`` and ``Metrics/fid2k`` checked;
    the phase's peak memory.
+16. tools: on phase 13's EMA snapshot (kept; it holds the tanh renderer)
+   and dataset, with phase 15's random-weight VGG16 in the drop-in
+   directory: ``cli/style_mixing`` 4x4; ``cli/projector`` for 50 steps on
+   one composite of the dataset with the VGG16-LPIPS distance (seconds a
+   step, the first and last distance); one projector step on the micro
+   ensemble, CPU (plain versions) against the card (kernels), same weights
+   and draws (loss within 1e-4 relative, gradients within 1e-3 of the
+   largest entry); ``cli/generate --projected-w`` of the projection and
+   ``--composite renderer`` for 8 seeds; ``cli/export_model`` (seconds,
+   bytes; no launch while tracing), the artifact loaded (seconds), its
+   graph's ``mgt`` nodes, and its program at batch 8 and 3 against direct
+   execution (rtol 2e-4, atol 2e-5) with images/s beside direct
+   execution's; ``cli/compare_renderers`` over the 64 samples (PSNR,
+   samples/s); the host's microseconds for one ``mgt::bias_act`` operator
+   call against a direct launch of K1'.  Every tool's launches of K1',
+   K1' grad and K2' are held exactly to ``tools/launches.py``
+   (``expected_launches``, ``expected_projector_launches``).
 
-Each main path (6, 8, 10, 11, 13's CLI step and 6-step loops, 14's steps
-and 15's fid2k) is driven with every launch count set to 0 just before it
-and read just after.  The last two lines are the card's name and
-power limit (from ``nvidia-smi``) and one JSON object, ``{"ok": true,
-"device": {...}}``; the line before them is ``{"kernels": [...]}``, and
-before it the loop's figures (``{"loop": ...}``), the metrics' and the
-data-parallel step's, and the total seconds.
+Each main path (6, 8, 10, 11, 13's CLI step and 6-step loops, 14's steps,
+15's fid2k and each of 16's tools) is driven with every launch count set to
+0 just before it and read just after.  The last two lines are the card's
+name and power limit (from ``nvidia-smi``) and one JSON object, ``{"ok":
+true, "device": {...}}``; the line before them is ``{"kernels": [...]}``,
+and before it the loop's figures (``{"loop": ...}``), the metrics', the
+tools' and the data-parallel step's, and the total seconds.
 """
 
 import contextlib
@@ -124,6 +141,7 @@ import time
 
 from montage_gan_tpu_torch.tools.ddp_check import spread
 from montage_gan_tpu_torch.tools.launches import (expected_launches,
+                                                  expected_projector_launches,
                                                   expected_train_launches)
 from montage_gan_tpu_torch.tools.timing import (PEAK_BYTES, card_line, device_ms,
                                                 host_us)
@@ -1348,6 +1366,7 @@ LOOP_BATCH_GPU = 16
 LOOP_STEPS = 6
 LOOP_SAMPLES = 64
 # what the loop prints of a snapshot's save or restore (training/loop_aio.py)
+TOOLS_SNAPSHOT = 'ema-snapshot.pt'      # phase 13's EMA snapshot, kept
 SNAPSHOT_LINE = re.compile(r'^(Saved|Restored) (.+): (\d+) bytes in '
                            r'([0-9.]+) s$', re.M)
 
@@ -1636,9 +1655,11 @@ def phase_loop(card, kernels, tmp):
             log(f'  {what} {path}: {n} bytes in {sec:.2f} s  card: {card}')
         out['launches'] = launches
         out['snapshots'] = snapshots
+        # the tools phase samples, projects and exports from it
+        os.replace(ema_snapshot, os.path.join(tmp, TOOLS_SNAPSHOT))
     finally:
         for name in os.listdir(tmp):          # the snapshots: several GB
-            if name != 'layers':
+            if name not in ('layers', TOOLS_SNAPSHOT):
                 shutil.rmtree(os.path.join(tmp, name), ignore_errors=True)
     return out
 
@@ -1945,6 +1966,288 @@ def phase_metrics(card, kernels, tmp, device='cuda'):
     return out
 
 
+# The tools phase: the projector's steps at config aio, the rows and columns
+# of the style-mixing grid, and the micro step's draw of w noise (t > 0).
+PROJECTOR_STEPS = 50
+STYLE_GRID = ('0-3', '4-7')
+MICRO_STEP = (3, 10)
+
+
+def projector_micro_step(kernels, device='cuda'):
+    """One projector step on the micro ensemble (float32) with the same
+    weights, target and draws, CPU (plain versions) against the card
+    (kernels): its loss and the gradients of w and the noise buffers, the
+    gradients held within ``TOL_TRAIN_GRAD`` of the largest entry; the
+    card's launches of K1', K1' grad and K2' exactly one step's."""
+    import torch
+    from montage_gan_tpu_torch.cli import projector
+    from montage_gan_tpu_torch.metrics.features import RandomFeatures
+    from montage_gan_tpu_torch.models.ensemble import (MontageConfig,
+                                                       MontageEnsemble)
+
+    cfg = MontageConfig(**MICRO)
+    cpu_model = MontageEnsemble(cfg).init_weights(SEED)
+    perturb_zero_init(cpu_model, torch.Generator().manual_seed(SEED + 3), 0.1)
+    cpu_model.eval().requires_grad_(False)
+    card_model = copy.deepcopy(cpu_model).to(device)
+    draws = projector.default_draws(cpu_model, SEED)
+    target = torch.rand(1, cfg.base_resolution, cfg.base_resolution, 4,
+                        generator=torch.Generator().manual_seed(SEED))
+
+    def step(model, dev):
+        p = projector.Projector(model, target.to(dev), draws=draws,
+                                extractor=RandomFeatures(seed=1, device=dev))
+        loss = p.loss(*MICRO_STEP)
+        grads = torch.autograd.grad(loss, p.params)
+        return loss.item(), torch.cat([g.flatten().cpu() for g in grads])
+
+    loss_ref, grad_ref = step(cpu_model, 'cpu')
+    for k in kernels.values():
+        k.reset()
+    loss, grad = step(card_model, device)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    one = expected_projector_launches(card_model, 1)
+    render = expected_projector_launches(card_model, 0)
+    mapping_fc = card_model.mapping.num_layers
+    expect = {'bias_act': one['bias_act'] - render['bias_act'] + mapping_fc,
+              'bias_act_grad': one['bias_act_grad'],
+              'upfirdn2d': one['upfirdn2d'] - render['upfirdn2d']}
+    if launches != expect:
+        raise AssertionError(f'projector micro step: launches {launches}, '
+                             f'expected {expect}')
+    loss_err = abs(loss - loss_ref) / abs(loss_ref)
+    grad_err = ((grad - grad_ref).abs().max() / grad_ref.abs().max()).item()
+    if not (loss_err <= TOL_TRAIN_LOSS and grad_err <= TOL_TRAIN_GRAD):
+        raise AssertionError(f'projector micro step: loss {loss} against '
+                             f'{loss_ref} ({loss_err:.3g}), gradients '
+                             f'{grad_err:.3g} of the largest entry')
+    log(f'  ok  projector step on the micro ensemble, card against CPU: loss '
+        f'{loss:.8g} ({loss_err:.3g} relative, limit {TOL_TRAIN_LOSS}), the '
+        f'gradients of w and {len(draws.noise)} noise buffers within '
+        f'{grad_err:.3g} of the largest entry (limit {TOL_TRAIN_GRAD}); '
+        f'launches {launches}')
+    return dict(loss_rel_err=loss_err, grad_err=grad_err, launches=launches)
+
+
+def phase_tools(card, kernels, tmp, device='cuda'):
+    """The inference tools at config ``aio`` on phase 13's EMA snapshot
+    (with its renderer) and dataset, with phase 15's random-weight VGG16 in
+    the drop-in directory: ``cli/style_mixing`` (a 4x4 grid),
+    ``cli/projector`` (``PROJECTOR_STEPS`` steps on one composite of the
+    dataset, VGG16-LPIPS distance), one projector step on the micro
+    ensemble held to the CPU, ``cli/generate --projected-w`` and
+    ``--composite renderer``, ``cli/export_model`` (its reloaded artifact
+    at batch 8 and 3 against direct execution, its images/s beside direct
+    execution's), ``cli/compare_renderers`` over the dataset, and the
+    host's cost of one ``mgt::bias_act`` dispatch against a direct launch.
+    Every tool's launches of K1', K1' grad and K2' are held exactly to
+    ``tools/launches.py``."""
+    import collections
+    import numpy as np
+    import torch
+    from montage_gan_tpu_torch.cli import (compare_renderers, export_model,
+                                           generate, projector, style_mixing)
+    from montage_gan_tpu_torch.data.dataset import DatasetAIO
+    from montage_gan_tpu_torch.ops import bias_act
+    from montage_gan_tpu_torch.utils import serving
+    from montage_gan_tpu_torch.utils.checkpoint import load_network
+    from montage_gan_tpu_torch.utils.image_utils import alpha_composite_np
+    from montage_gan_tpu_torch.utils.png import read_png_rgba, write_png_rgba
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    ema = os.path.join(tmp, TOOLS_SNAPSHOT)
+    work = os.path.join(tmp, 'tools')
+    os.makedirs(work)
+    cfg, model = load_network(ema, device=device)
+    if model.renderer is None:
+        raise AssertionError(f'{ema}: the EMA snapshot holds no renderer')
+    res = cfg.base_resolution
+    per_call = expected_launches(model)
+    mapping_fc = model.mapping.num_layers
+    synth = dict(per_call, bias_act=per_call['bias_act'] - mapping_fc)
+    out = {'launches': {}}
+    log(f'[tools] config aio from phase 13\'s EMA snapshot (renderer '
+        f'{cfg.renderer_type}); one sampling call launches {per_call}')
+
+    def counted(label, fn, expect):
+        """``fn()`` with every count at 0 before it and read after; the
+        launches must be ``expect``.  Returns (result, seconds)."""
+        for k in kernels.values():
+            k.reset()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got = {name: k.launches for name, k in kernels.items()}
+        want = {name: expect.get(name, 0) for name in kernels}
+        if got != want:
+            raise AssertionError(f'{label}: launches {got}, expected {want}')
+        out['launches'][label] = got
+        return result, sec
+
+    def pngs(d, count):
+        names = sorted(f for f in os.listdir(d) if f.endswith('.png'))
+        if len(names) != count:
+            raise AssertionError(f'{d}: {names}, expected {count} PNGs')
+        return {n: read_png_rgba(os.path.join(d, n)) for n in names}
+
+    # 1. the style-mixing grid
+    d = os.path.join(work, 'mixing')
+    rows, cols = STYLE_GRID
+    n = 16
+    images, sec = counted('style_mixing_4x4', lambda: style_mixing.main([
+        '--network', ema, '--rows', rows, '--cols', cols, '--outdir', d,
+        '--device', device]), {'bias_act': mapping_fc + n * synth['bias_act'],
+                               'upfirdn2d': n * synth['upfirdn2d']})
+    files = pngs(d, 1 + n)
+    if files['grid.png'].shape != (4 * (res + 2) + 2, 4 * (res + 2) + 2, 4) \
+            or not all(np.isfinite(v).all() for v in images.values()):
+        raise AssertionError(f'style mixing: grid {files["grid.png"].shape}')
+    out['style_mixing_s'] = sec
+    log(f'  ok  cli/style_mixing --rows {rows} --cols {cols}: grid.png and '
+        f'{n} montages in {sec:.1f} s (the snapshot read included)')
+
+    # 2. the projector on one composite of the dataset
+    layers = DatasetAIO(os.path.join(tmp, 'layers'))[0]
+    target = os.path.join(work, 'target.png')
+    write_png_rgba(target, (np.clip(alpha_composite_np(layers), 0, 1) * 255
+                            + 0.5).astype(np.uint8))
+    extractor = projector.projector_extractor(device)
+    if extractor.name != 'vgg16_lpips':
+        raise AssertionError(f'the projector\'s distance is {extractor.name}')
+    del extractor
+    d = os.path.join(work, 'projector')
+    result, sec = counted(f'projector_{PROJECTOR_STEPS}_steps',
+                          lambda: projector.main([
+                              '--network', ema, '--target', target,
+                              '--num-steps', str(PROJECTOR_STEPS),
+                              '--outdir', d, '--device', device]),
+                          expected_projector_launches(model, PROJECTOR_STEPS))
+    pngs(d, 2)
+    w = np.load(os.path.join(d, 'projected_w.npz'))['w']
+    losses = result.losses
+    if w.shape != (1, cfg.num_layers, model.num_ws, cfg.w_dim) or \
+            not (np.isfinite(w).all() and torch.isfinite(losses).all()):
+        raise AssertionError(f'projector: w {w.shape}, distances {losses}')
+    out['projector'] = dict(
+        steps=PROJECTOR_STEPS, s_per_step=result.seconds / PROJECTOR_STEPS,
+        first_distance=losses[0].item(), last_distance=losses[-1].item(),
+        command_s=sec)
+    log(f'  ok  cli/projector --num-steps {PROJECTOR_STEPS} (VGG16-LPIPS '
+        f'distance, random weights): {result.seconds / PROJECTOR_STEPS:.3f} '
+        f's a step, distance {losses[0].item():.6g} at step 1, '
+        f'{losses[-1].item():.6g} at step {PROJECTOR_STEPS}; {sec:.1f} s in '
+        f'all  card: {card}')
+    out['projector_micro_step'] = projector_micro_step(kernels, device)
+
+    # 3. generate: the projection replayed, and seeds through the renderer
+    d = os.path.join(work, 'replay')
+    _, sec = counted('generate_projected_w', lambda: generate.main([
+        '--network', ema, '--projected-w',
+        os.path.join(work, 'projector', 'projected_w.npz'), '--save-layers',
+        '--composite', 'renderer', '--outdir', d, '--device', device]),
+        synth)
+    pngs(d, 1 + cfg.num_layers)
+    d = os.path.join(work, 'renderer')
+    _, sec2 = counted('generate_renderer_8_seeds', lambda: generate.main([
+        '--network', ema, '--seeds', '0-7', '--composite', 'renderer',
+        '--outdir', d, '--device', device]),
+        {k: 8 * v for k, v in per_call.items()})
+    files = pngs(d, 8)
+    out.update(generate_projected_w_s=sec, generate_renderer_s=sec2)
+    log(f'  ok  cli/generate --projected-w --save-layers --composite '
+        f'renderer ({sec:.1f} s) and --seeds 0-7 --composite renderer '
+        f'({sec2:.1f} s): mean alpha '
+        f'{np.mean([v[..., 3].mean() / 255 for v in files.values()]):.3f}')
+
+    # 4. the serving artifact
+    artifact = os.path.join(work, 'montage.pt2')
+    meta, export_s = counted('export', lambda: export_model.main([
+        '--network', ema, '--out', artifact, '--device', device]), {})
+    nbytes_artifact = os.path.getsize(artifact)
+    t0 = time.perf_counter()
+    meta, call = serving.load_file(artifact)
+    load_s = time.perf_counter() - t0
+    nodes = collections.Counter(
+        str(n.target).split('.')[1] for n in call.program.graph.nodes
+        if str(n.target).startswith('mgt.'))
+    if dict(nodes) != per_call:
+        raise AssertionError(f'the artifact\'s kernel nodes {dict(nodes)}, '
+                             f'expected {per_call}')
+    direct = serving.build_inference_fn(cfg, model)
+    errs = {}
+    for batch in (8, 3):
+        z = torch.from_numpy(seed_z(range(batch), cfg.z_dim)).to(device)
+        got, _ = counted(f'artifact_batch{batch}', lambda: call(z), per_call)
+        ref = direct(z)
+        for name, a, b in zip(('placed', 'img'), got, ref):
+            torch.testing.assert_close(
+                a, b, rtol=2e-4, atol=2e-5,
+                msg=lambda m: f'artifact {name}, batch {batch}: {m}')
+            errs[f'{name}_batch{batch}'] = (a - b).abs().max().item()
+
+    def images_per_s(fn, z, repeats=5):
+        fn(z)
+        times = []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(z)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return z.shape[0] / statistics.median(times)
+    z = torch.from_numpy(seed_z(range(BATCH), cfg.z_dim)).to(device)
+    ips = {'artifact': images_per_s(call, z),
+           'direct': images_per_s(direct, z)}
+    out['export'] = dict(export_s=export_s, artifact_bytes=nbytes_artifact,
+                         load_s=load_s, max_abs_err=errs,
+                         images_per_s_batch8=ips)
+    log(f'  ok  cli/export_model: traced and saved in {export_s:.1f} s (no '
+        f'launch), {nbytes_artifact} bytes, loaded in {load_s:.1f} s; its '
+        f'graph holds {dict(nodes)} kernel nodes; reloaded at batch 8 and 3 '
+        f'against direct execution max_abs_err {errs} (rtol 2e-4, atol '
+        f'2e-5), launches exactly a sampling call\'s; batch {BATCH}: '
+        f'{ips["artifact"]:.2f} images/s through the artifact, '
+        f'{ips["direct"]:.2f} direct  card: {card}')
+
+    # 5. renderer checkpoints scored over the dataset
+    scores, sec = counted('compare_renderers', lambda: compare_renderers.main([
+        '--data', os.path.join(tmp, 'layers'), '--ckpt', ema, '--batch', '16',
+        '--device', device]), {})
+    psnr = scores[ema]
+    if not math.isfinite(psnr):
+        raise AssertionError(f'compare_renderers: PSNR {psnr}')
+    n = len(DatasetAIO(os.path.join(tmp, 'layers')))
+    out['compare_renderers'] = dict(psnr_db=psnr, samples=n, seconds=sec,
+                                    samples_per_s=n / sec)
+    log(f'  ok  cli/compare_renderers: average PSNR {psnr:.4f} dB over {n} '
+        f'randomly placed samples in {sec:.1f} s ({n / sec:.1f} samples/s, '
+        'the reads included)')
+
+    # 6. the host's cost of one operator dispatch against a direct launch
+    x = torch.randn(1, 32, 32, 256, device=device)
+    b = torch.randn(256, device=device)
+    gain = math.sqrt(2)
+    host = {
+        'direct_launch': host_us(lambda: bias_act.bias_act_cuda(
+            x, b, act='lrelu', gain=gain, clamp=256.0)),
+        'eager_wrapper': host_us(lambda: bias_act.bias_act(
+            x, b, act='lrelu', gain=gain, clamp=256.0)),
+        'operator': host_us(lambda: torch.ops.mgt.bias_act(
+            x, b, -1, 'lrelu', 0.2, gain, 256.0))}
+    out['host_us_bias_act_1x32x32x256'] = host
+    log(f'  host µs a call of K1\' on [1,32,32,256] f32: direct launch '
+        f'{host["direct_launch"]:.2f}, the eager wrapper '
+        f'{host["eager_wrapper"]:.2f}, the mgt::bias_act operator '
+        f'{host["operator"]:.2f}  card: {card}')
+    out['phase_s'] = time.perf_counter() - t_phase
+    log(f'[tools] {out["phase_s"]:.1f} s')
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, 'montage_gan_tpu_torch', 'csrc')):
         sys.exit('chip_smoke.py: montage_gan_tpu_torch/ is not beside this '
@@ -1995,6 +2298,7 @@ def main():
     checks['bias_act_grad'] = grads['bias_act_grad']
 
     slice_kernels = {k: kernels[k] for k in ('bias_act', 'upfirdn2d')}
+    tool_kernels = ('bias_act', 'bias_act_grad', 'upfirdn2d')
     model, z = phase_slice(card, slice_kernels, MontageConfig())
     composite_check, composite_launches, composite_extra = phase_composite(
         card, model, z)
@@ -2016,6 +2320,7 @@ def main():
         loop = phase_loop(card, kernels, tmp)
         metrics = phase_metrics(card, {k: kernels[k] for k in slice_kernels},
                                 tmp)
+        tools = phase_tools(card, {k: kernels[k] for k in tool_kernels}, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2047,6 +2352,11 @@ def main():
         if name in metrics['launches']:
             # calc_metric('fid2k') at config aio: 125 sampling calls
             rows[-1]['launches_fid2k'] = metrics['launches'][name]
+        if name in tool_kernels:
+            # the inference tools at config aio, each checked against
+            # tools/launches.py (export: the tracing, which launches none)
+            rows[-1]['launches_tools'] = {
+                label: got[name] for label, got in tools['launches'].items()}
         if row_loop is not None:
             # the training CLI's one accumulated step at batch 32 (and its
             # EMA grid), checked against expected_train_launches
@@ -2073,6 +2383,8 @@ def main():
     log(json.dumps({'loop': {k: v for k, v in loop.items()
                              if k != 'launches'}, 'card': card}))
     log(json.dumps({'metrics': metrics, 'card': card}))
+    log(json.dumps({'tools': {k: v for k, v in tools.items()
+                              if k != 'launches'}, 'card': card}))
     log(json.dumps({'ddp': [{k: v for k, v in r.items()
                              if k not in ('expected', 'launches')}
                             for r in ddp], 'card': card}))

@@ -14,16 +14,16 @@ from typing import Optional, Sequence
 
 # command → the port's CLI module
 PORTED = {'train-aio': 'train_aio', 'generate': 'generate',
-          'calc-metrics': 'calc_metrics', 'check-weights': 'check_weights'}
+          'calc-metrics': 'calc_metrics', 'check-weights': 'check_weights',
+          'projector': 'projector', 'style-mixing': 'style_mixing',
+          'export-model': 'export_model',
+          'compare-renderers': 'compare_renderers'}
 # the JAX package's other commands → the ROADMAP queue item they wait for
 WAITING = {'train': 'queue 1, item 7', 'run-recipe': 'queue 1, item 7',
-           'projector': 'queue 1, item 5', 'style-mixing': 'queue 1, item 5',
            'dataset-tool': 'queue 1, item 7',
-           'export-model': 'queue 1, item 5',
            'export-torch': 'queue 1, item 7',
            'pretrain-renderer': 'queue 1, item 7',
            'pretrain-stn': 'queue 1, item 7',
-           'compare-renderers': 'queue 1, item 5',
            'convert-pickle': 'queue 1, item 7'}
 
 

@@ -1,13 +1,18 @@
-"""Sample montages from a snapshot.
+"""Sample montages from a snapshot, or replay a projection.
 
-Port of the seeds path of ``montage_gan_tpu/cli/generate.py:171-194``: seed
-list → z → ensemble → the composited montage as an RGBA PNG and, with
-``--save-layers``, each placed layer.  ``--network`` takes a port checkpoint
-(``utils.checkpoint.save_checkpoint``) or a JAX EMA snapshot (``.msgpack``
-with its ``.json``).
+Port of ``montage_gan_tpu/cli/generate.py``: seed list → z → ensemble → the
+montage as an RGBA PNG (the alpha composite, or the learned renderer with
+``--composite renderer``) and, with ``--save-layers``, each placed layer;
+``--projected-w`` replays a projector result (``projected_w.npz``) through
+synthesis and the STN instead (``proj{idx:02d}.png``).  ``--network`` takes
+a port checkpoint (``utils.checkpoint.save_checkpoint``) or a JAX EMA
+snapshot (``.msgpack`` with its ``.json``); a reference ``.pkl`` waits for
+ROADMAP queue 1, item 7.
 
     python -m montage_gan_tpu_torch.cli.generate --network CKPT \\
         --seeds 0-7 --outdir out [--device cuda]
+    python -m montage_gan_tpu_torch.cli.generate --network CKPT \\
+        --projected-w proj/projected_w.npz --outdir out
 
 PNGs are written by the port's zlib encoder (``utils/png.py``), so the CLI
 needs neither PIL nor click.
@@ -23,9 +28,11 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops.composite import alpha_composite
 from ..utils.checkpoint import load_network
+from ..utils.image_utils import normalize_zero1
 from ..utils.png import write_png_rgba
-from ..utils.serving import build_inference_fn
+from ..utils.serving import COMPOSITES, build_inference_fn
 
 
 def parse_range(s: str) -> List[int]:
@@ -45,25 +52,74 @@ def to_u8(x01: np.ndarray) -> np.ndarray:
     return (np.clip(x01, 0, 1) * 255 + 0.5).astype(np.uint8)
 
 
+def write_layers(prefix: str, placed: np.ndarray, layer_names) -> None:
+    """Each placed layer ``[L, H, W, 4]`` in [-1, 1] as
+    ``{prefix}-{li}_{name}.png``."""
+    layers01 = (np.clip(placed, -1, 1) + 1) / 2
+    for li, name in enumerate(layer_names):
+        write_png_rgba(f'{prefix}-{li}_{name}.png',
+                       (layers01[li] * 255 + 0.5).astype(np.uint8))
+
+
+def replay(model, ws: torch.Tensor, composite: str = 'alpha'):
+    """(placed layers in [-1, 1], montage in [0, 1]) of ``ws`` with constant
+    noise: through the STN where the model has one, the renderer where
+    ``composite='renderer'`` and the model has one, else the alpha composite
+    of the clipped layers (``montage_gan_tpu/cli/generate.py:100-111``)."""
+    if model.stn is not None:
+        placed, _ = model.run_global_g_from_ws(ws, noise_mode='const')
+    else:
+        placed = model.synthesize_layers(ws, noise_mode='const')
+    if composite == 'renderer' and model.renderer is not None:
+        img = normalize_zero1(model.blend(placed, use_renderer=True))
+    else:
+        img = alpha_composite(normalize_zero1(placed.clamp(-1, 1)))
+    return placed, img.clamp(0, 1)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     p = argparse.ArgumentParser(description='Generate montage images (RGBA) '
                                             'from a snapshot.')
     p.add_argument('--network', required=True, metavar='PATH',
                    help='port checkpoint, or JAX EMA snapshot (.msgpack + .json)')
-    p.add_argument('--seeds', type=parse_range, required=True)
+    p.add_argument('--seeds', type=parse_range, default=None)
+    p.add_argument('--projected-w', metavar='FILE', default=None,
+                   help='replay a projector result (projected_w.npz) '
+                        'through synthesis instead of sampling seeds')
     p.add_argument('--trunc', dest='truncation_psi', type=float, default=1.0)
     p.add_argument('--noise-mode', choices=['const', 'random', 'none'],
                    default='const')
     p.add_argument('--outdir', required=True, metavar='DIR')
     p.add_argument('--save-layers', action='store_true')
-    p.add_argument('--composite', choices=['alpha'], default='alpha')
+    p.add_argument('--composite', choices=COMPOSITES, default='alpha')
     p.add_argument('--device', default='cuda',
                    help="torch device to sample on (default 'cuda')")
     args = p.parse_args(argv)
+    if args.projected_w is None and args.seeds is None:
+        p.error('--seeds is required when --projected-w is not given')
+    if args.network.endswith('.pkl'):
+        raise NotImplementedError(f'{args.network}: reference .pkl networks '
+                                  'are not ported yet, ROADMAP queue 1, '
+                                  'item 7')
 
     device = torch.device(args.device)
     os.makedirs(args.outdir, exist_ok=True)
     cfg, model = load_network(args.network, device=device)
+
+    if args.projected_w is not None:
+        ws_all = np.load(args.projected_w)['w']
+        for idx in range(ws_all.shape[0]):
+            print(f'Replaying projected w {idx} ...')
+            ws = torch.from_numpy(ws_all[idx:idx + 1].astype(np.float32))
+            with torch.inference_mode():
+                placed, img = replay(model, ws.to(device), args.composite)
+            write_png_rgba(f'{args.outdir}/proj{idx:02d}.png',
+                           to_u8(img[0].cpu().numpy()))
+            if args.save_layers:
+                write_layers(f'{args.outdir}/proj{idx:02d}',
+                             placed[0].cpu().numpy(), cfg.layer_names)
+        return
+
     sample = build_inference_fn(cfg, model,
                                 truncation_psi=args.truncation_psi,
                                 noise_mode=args.noise_mode,
@@ -76,10 +132,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         write_png_rgba(f'{args.outdir}/seed{seed:04d}.png',
                        to_u8(img[0].cpu().numpy()))
         if args.save_layers:
-            layers01 = (np.clip(placed[0].cpu().numpy(), -1, 1) + 1) / 2
-            for li, name in enumerate(cfg.layer_names):
-                write_png_rgba(f'{args.outdir}/seed{seed:04d}-{li}_{name}.png',
-                               (layers01[li] * 255 + 0.5).astype(np.uint8))
+            write_layers(f'{args.outdir}/seed{seed:04d}',
+                         placed[0].cpu().numpy(), cfg.layer_names)
 
 
 if __name__ == '__main__':

@@ -21,6 +21,13 @@ K1''s forward has two variants, chosen from the parameters alone by
 16-byte vector per thread per step) for tensors that allow 16-byte
 vectors, and ``scalar`` for unaligned views and rows that are not a whole
 number of vectors.
+
+For ``torch.export`` the forward and the gradient kernel are also operators
+of ``torch.library`` (``mgt::bias_act``, ``mgt::bias_act_grad``): an
+exported program keeps each as one graph node, whose CUDA face launches the
+kernel (counted as above) and whose CPU face is the plain version.
+``bias_act`` routes to the operator only while exporting; eager code
+launches the kernel directly, without a dispatcher hop per launch.
 """
 
 from __future__ import annotations
@@ -210,6 +217,99 @@ def bias_act_grad_cuda(g: torch.Tensor, x: Optional[torch.Tensor],
     return out
 
 
+def _act_deriv(act: str, order: int, yy, z, alpha: float):
+    """``act'`` (order 1) or ``act''`` (order 2) as the gradient kernel reads
+    them (``csrc/bias_act.cu::mgt_act_deriv``): from ``yy = y / gain``, or
+    for swish from ``z = x + b``."""
+    one = order == 1
+    if act == 'linear':
+        return 1.0 if one else 0.0
+    if act == 'relu':
+        return (yy > 0).float() if one else 0 * yy
+    if act == 'lrelu':
+        return torch.where(yy > 0, 1.0, alpha) if one else 0 * yy
+    if act == 'tanh':
+        d = 1 - yy * yy
+        return d if one else -2 * yy * d
+    if act == 'sigmoid':
+        d = yy * (1 - yy)
+        return d if one else d * (1 - 2 * yy)
+    if act == 'elu':
+        return torch.where(yy > 0, 1.0 if one else 0.0, yy + 1)
+    if act == 'selu':
+        sc, al = 1.0507009873554804934, 1.6732632423543772848
+        return torch.where(yy > 0, sc if one else 0.0, yy + sc * al)
+    if act == 'softplus':
+        s = -torch.expm1(-yy)
+        return s if one else (1 - s) * s
+    s = torch.sigmoid(z)                                   # swish
+    return (s * (1 + z * (1 - s)) if one
+            else s * (1 - s) * (2 + z * (1 - 2 * s)))
+
+
+def bias_act_grad_ref(g: torch.Tensor, x: Optional[torch.Tensor],
+                      b: Optional[torch.Tensor], y: Optional[torch.Tensor],
+                      dy: Optional[torch.Tensor] = None, order: int = 1,
+                      act: str = 'linear', alpha: Optional[float] = None,
+                      gain: Optional[float] = None,
+                      clamp: Optional[float] = None) -> torch.Tensor:
+    """The plain version of the gradient kernel, on any device: what
+    ``bias_act_grad_cuda`` computes, in float32 with one rounding."""
+    _, alpha, gain = _resolve(act, alpha, gain, clamp)
+    yy = None if y is None else y.float() / gain
+    z = None
+    if x is not None:
+        z = x.float() + (b.to(x.dtype).float() if b is not None else 0)
+    d = _act_deriv(act, order, yy, z, alpha) * gain * g.float()
+    if order == 2:
+        d = d * dy.float()
+    if clamp is not None:
+        bound = float(torch.tensor(clamp, dtype=g.dtype))
+        d = torch.where(y.float().abs() < bound, d, 0.0)
+    return d.to(g.dtype)
+
+
+@torch.library.custom_op('mgt::bias_act', mutates_args=())
+def bias_act_op(x: torch.Tensor, b: Optional[torch.Tensor], dim: int,
+                act: str, alpha: float, gain: float,
+                clamp: Optional[float]) -> torch.Tensor:
+    """K1' as an operator (CPU face: the plain version)."""
+    y = bias_act_ref(x, b, dim, act, alpha, gain, clamp)
+    return y.clone() if y is x else y
+
+
+@bias_act_op.register_kernel('cuda')
+def _bias_act_op_cuda(x, b, dim, act, alpha, gain, clamp):
+    return bias_act_cuda(x.contiguous(), b, dim, act, alpha, gain, clamp)
+
+
+@bias_act_op.register_fake
+def _bias_act_op_fake(x, b, dim, act, alpha, gain, clamp):
+    return x.new_empty(x.shape)
+
+
+@torch.library.custom_op('mgt::bias_act_grad', mutates_args=())
+def bias_act_grad_op(g: torch.Tensor, x: Optional[torch.Tensor],
+                     b: Optional[torch.Tensor], y: Optional[torch.Tensor],
+                     dy: Optional[torch.Tensor], order: int, act: str,
+                     alpha: float, gain: float,
+                     clamp: Optional[float]) -> torch.Tensor:
+    """K1''s gradient kernel as an operator (CPU face: the plain
+    version)."""
+    return bias_act_grad_ref(g, x, b, y, dy, order, act, alpha, gain, clamp)
+
+
+@bias_act_grad_op.register_kernel('cuda')
+def _bias_act_grad_op_cuda(g, x, b, y, dy, order, act, alpha, gain, clamp):
+    return bias_act_grad_cuda(g.contiguous(), x, b, y, dy, order, act, alpha,
+                              gain, clamp)
+
+
+@bias_act_grad_op.register_fake
+def _bias_act_grad_op_fake(g, x, b, y, dy, order, act, alpha, gain, clamp):
+    return g.new_empty(g.shape)
+
+
 def _check(t: torch.Tensor, name: str) -> None:
     if t.device.type != 'cuda':
         raise ValueError(f'bias_act kernel needs a CUDA tensor, got {name} '
@@ -322,6 +422,10 @@ def bias_act(x: torch.Tensor, b: Optional[torch.Tensor] = None,
              clamp: Optional[float] = None) -> torch.Tensor:
     """Add bias along ``dim``, apply ``act``, scale by ``gain``, clamp to
     ±clamp.  ``dim`` defaults to -1 (channels-last)."""
+    if torch.compiler.is_exporting():
+        _, alpha, gain = _resolve(act, alpha, gain, clamp)
+        return bias_act_op(x, b, dim, act, alpha, gain,
+                           None if clamp is None else float(clamp))
     if takes_plain(x):
         return bias_act_ref(x, b, dim, act, alpha, gain, clamp)
     if b is not None:

@@ -23,6 +23,12 @@ variants' geometry, which the kernel computes the same way.
 
 Filters are float32 tensors from ``setup_filter`` (modules keep them as
 buffers on the device), numpy arrays, or None (identity).
+
+For ``torch.export`` K2' is also an operator of ``torch.library``
+(``mgt::upfirdn2d``): an exported program keeps it as one graph node, whose
+CUDA face launches the kernel and whose CPU face is the plain version.
+``upfirdn2d`` routes to it only while exporting; eager code launches the
+kernel directly.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import ctypes
 import functools
 import math
 from dataclasses import dataclass
-from typing import Iterator, Sequence, Tuple, Union
+from typing import Iterator, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -187,6 +193,12 @@ def _as_filter(f, device) -> torch.Tensor:
     return f
 
 
+def _out_size(h: int, w: int, up, down, pad, fh: int, fw: int):
+    """(out_h, out_w) of ``upfirdn2d`` on an ``h × w`` input."""
+    return ((h * up[1] + pad[2] + pad[3] - fh) // down[1] + 1,
+            (w * up[0] + pad[0] + pad[1] - fw) // down[0] + 1)
+
+
 def zero_insert_pad(x: torch.Tensor, up: Tuple[int, int],
                     pad: Tuple[int, int, int, int]) -> torch.Tensor:
     """NHWC ``x`` → zero-upsampled (``x`` at every ``up``-th sample, trailing
@@ -260,8 +272,8 @@ def upfirdn2d_cuda(x: torch.Tensor, f, up: IntOrPair = 1, down: IntOrPair = 1,
     padx0, padx1, pady0, pady1 = _parse_padding(padding)
     n, h, w, c = x.shape
     fh, fw = _filter_size(f)
-    out_h = (h * upy + pady0 + pady1 - fh) // downy + 1
-    out_w = (w * upx + padx0 + padx1 - fw) // downx + 1
+    out_h, out_w = _out_size(h, w, (upx, upy), (downx, downy),
+                             (padx0, padx1, pady0, pady1), fh, fw)
     if out_h < 1 or out_w < 1:
         raise ValueError(f'upfirdn2d output would be empty ({out_h}x{out_w})')
     y = torch.empty(n, out_h, out_w, c, dtype=x.dtype, device=x.device)
@@ -282,6 +294,28 @@ def upfirdn2d_cuda(x: torch.Tensor, f, up: IntOrPair = 1, down: IntOrPair = 1,
                   VARIANT_CODES[variant], smem, stream_handle(launch_device(x)),
                   variant=variant, nbytes=tensor_bytes(x, f, y))
     return y
+
+
+@torch.library.custom_op('mgt::upfirdn2d', mutates_args=())
+def upfirdn2d_op(x: torch.Tensor, f: torch.Tensor, up: List[int],
+                 down: List[int], padding: List[int], flip_filter: bool,
+                 gain: float) -> torch.Tensor:
+    """K2' as an operator (CPU face: the plain version); ``up``, ``down``
+    as ``[x, y]``, ``padding`` as ``[x0, x1, y0, y1]``."""
+    return upfirdn2d_ref(x, f, up, down, padding, flip_filter, gain)
+
+
+@upfirdn2d_op.register_kernel('cuda')
+def _upfirdn2d_op_cuda(x, f, up, down, padding, flip_filter, gain):
+    return upfirdn2d_cuda(x.contiguous(), f.contiguous(), up, down, padding,
+                          flip_filter, gain)
+
+
+@upfirdn2d_op.register_fake
+def _upfirdn2d_op_fake(x, f, up, down, padding, flip_filter, gain):
+    fh, fw = _filter_size(f)
+    n, h, w, c = x.shape
+    return x.new_empty(n, *_out_size(h, w, up, down, padding, fh, fw), c)
 
 
 class _Upfirdn2dCuda(torch.autograd.Function):
@@ -329,6 +363,11 @@ def upfirdn2d(x: torch.Tensor, f, up: IntOrPair = 1, down: IntOrPair = 1,
         flip_filter: False = convolution, True = correlation.
         gain: overall magnitude scaling.
     """
+    if torch.compiler.is_exporting():
+        return upfirdn2d_op(x, _as_filter(f, x.device), list(_parse_scaling(up)),
+                            list(_parse_scaling(down)),
+                            list(_parse_padding(padding)), bool(flip_filter),
+                            float(gain))
     if takes_plain(x):
         return upfirdn2d_ref(x, f, up, down, padding, flip_filter, gain)
     return _Upfirdn2dCuda.apply(

@@ -8,14 +8,18 @@ runs every phase on its share of each round.
 from __future__ import annotations
 
 
+def _count(module, kinds) -> int:
+    """How many submodules of ``module`` (itself included) are ``kinds``."""
+    return sum(isinstance(m, kinds) for m in module.modules())
+
+
 def expected_launches(model):
     """Launches one sampling call makes: one bias_act per FullyConnected,
     SynthesisLayer and ToRGBLayer forward; one upfirdn2d (the ToRGB skip
     upsample) per synthesis block above the first."""
     from ..models.layers import FullyConnected
     from ..models.synthesis import SynthesisLayer, ToRGBLayer
-    k1 = sum(isinstance(m, (FullyConnected, SynthesisLayer, ToRGBLayer))
-             for m in model.modules())
+    k1 = _count(model, (FullyConnected, SynthesisLayer, ToRGBLayer))
     k2 = sum(len(net.block_resolutions) - 1 for net in model.local_g)
     return {'bias_act': k1, 'upfirdn2d': k2}
 
@@ -60,12 +64,9 @@ def expected_train_launches(model, hyper, steps):
     from ..models.layers import Conv2dLayer, FullyConnected
     from ..models.synthesis import SynthesisLayer, ToRGBLayer
 
-    def count(module, kinds):
-        return sum(isinstance(m, kinds) for m in module.modules())
-
     def d_counts(d):
-        return (count(d, (Conv2dLayer, FullyConnected)),
-                sum(count(b, Conv2dLayer) for b in d.blocks()))
+        return (_count(d, (Conv2dLayer, FullyConnected)),
+                sum(_count(b, Conv2dLayer) for b in d.blocks()))
 
     def has_warp(aug):
         return int(aug is not None and (aug.any_blit or aug.any_geom))
@@ -76,8 +77,8 @@ def expected_train_launches(model, hyper, steps):
     clamped = int(model.cfg.conv_clamp is not None)
     g_fwd = g_grad = g_up = 0        # one global forward: all local Gs
     for g in model.local_g:
-        s, t = count(g, SynthesisLayer), count(g, ToRGBLayer)
-        g_fwd += m + s + t + count(g, FullyConnected)
+        s, t = _count(g, SynthesisLayer), _count(g, ToRGBLayer)
+        g_fwd += m + s + t + _count(g, FullyConnected)
         g_grad += m + s + t * clamped
         g_up += len(g.block_resolutions) - 1
     use_r = not hyper.bypass_renderer and model.renderer is not None
@@ -94,8 +95,8 @@ def expected_train_launches(model, hyper, steps):
         for g, d in zip(model.local_g, model.local_d):
             if not hyper.train_local:
                 break
-            s, t = count(g, SynthesisLayer), count(g, ToRGBLayer)
-            n_g = s + t + count(g, FullyConnected)
+            s, t = _count(g, SynthesisLayer), _count(g, ToRGBLayer)
+            n_g = s + t + _count(g, FullyConnected)
             t_grad = t * clamped
             blocks = len(g.block_resolutions)
             n_d, lb = d_counts(d)
@@ -126,3 +127,26 @@ def expected_train_launches(model, hyper, steps):
         out['warp_forward'] += gwarp * (2 * main + 2 * gr1)
         out['warp_transpose'] += gwarp * (main + gr1)
     return out
+
+
+def expected_projector_launches(model, steps):
+    """Launches of ``cli/projector.project`` for ``steps`` steps: the
+    mapping once over the w statistics' samples (one K1' per FC); per step
+    every local G forward (``expected_launches`` without the mapping) and
+    its backward (the layer stack joins every net, so all of them run it,
+    ``--layer`` or not): K1' grad per synthesis layer and per ToRGB with
+    ``conv_clamp`` (the affines' backward is the identity), K2' per skip
+    upsample; then one forward of the result."""
+    from ..models.layers import FullyConnected
+    from ..models.synthesis import SynthesisLayer, ToRGBLayer
+
+    clamped = int(model.cfg.conv_clamp is not None)
+    fwd = grad = ups = 0
+    for g in model.local_g:
+        fwd += _count(g, (FullyConnected, SynthesisLayer, ToRGBLayer))
+        grad += _count(g, SynthesisLayer) + clamped * _count(g, ToRGBLayer)
+        ups += len(g.block_resolutions) - 1
+    return {'bias_act': _count(model.mapping, FullyConnected)
+            + (steps + 1) * fwd,
+            'bias_act_grad': steps * grad,
+            'upfirdn2d': (2 * steps + 1) * ups}

@@ -7,11 +7,13 @@ Layouts are NHWC: images ``[B, H, W, C]``, layer stacks ``[B, L, H, W, C]``.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..ops.grid_sample import translate_sample
 
 
 def normalize_minus11(x):
@@ -56,6 +58,25 @@ def blend_white_bg(images: torch.Tensor) -> torch.Tensor:
     from ..ops.composite import alpha_composite
     stack = torch.stack([torch.ones_like(images), images], dim=-4)
     return alpha_composite(stack, layer_axis=-4)[..., :3]
+
+
+def random_position(layers: torch.Tensor,
+                    generator: Optional[torch.Generator] = None,
+                    pad_value: float = 0.0,
+                    translations: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Translate each layer of ``[B, L, H, W, C]`` to a uniform random
+    position: normalized offsets ``[B * L, 2]`` in [-1, 1), drawn from
+    ``generator`` (on the layers' device) unless ``translations`` gives
+    them (``montage_gan_tpu/utils/image_utils.py:76-85``)."""
+    b, l, h, w, c = layers.shape
+    if translations is None:
+        translations = torch.rand((b * l, 2), generator=generator,
+                                  device=layers.device) * 2.0 - 1.0
+    moved = translate_sample(layers.reshape(b * l, h, w, c),
+                             translations.to(layers.device),
+                             pad_value=pad_value)
+    return moved.reshape(b, l, h, w, c)
 
 
 def stack_layer_to_channel(x: torch.Tensor) -> torch.Tensor:
@@ -115,6 +136,80 @@ def make_batch_for_local_d_np(blhwc: np.ndarray,
         crop = centered[:, idx, y0:y0 + bh, x0:x0 + bw]
         outs.append(crop * 2.0 - 1.0 if to_minus11 else crop)
     return outs
+
+
+# PIL's LANCZOS resize of an 8-bit RGBA image (Pillow's Resample.c: the
+# coefficients in double, normalized to 22-bit fixed point; a horizontal
+# pass, then a vertical one, each rounding to 8 bits; RGBA resized as
+# premultiplied RGBa, Convert.c).
+_PRECISION_BITS = 32 - 8 - 2
+_LANCZOS_SUPPORT = 3.0
+
+
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    def sinc(v):
+        safe = np.where(v == 0.0, 1.0, v * np.pi)
+        return np.where(v == 0.0, 1.0, np.sin(safe) / safe)
+    return np.where((x >= -3.0) & (x < 3.0), sinc(x) * sinc(x / 3.0), 0.0)
+
+
+def _resample_coeffs(in_size: int, out_size: int):
+    """(first input index, fixed-point weights ``[out, ksize]``) of one
+    axis."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = _LANCZOS_SUPPORT * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    kk = np.zeros((out_size, ksize), np.float64)
+    first = np.zeros(out_size, np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = _lanczos((np.arange(xmax) + xmin - center + 0.5) / filterscale)
+        total = w.sum()
+        kk[xx, :xmax] = w / total if total != 0.0 else w
+        first[xx] = xmin
+    fixed = np.where(kk < 0, -0.5 + kk * (1 << _PRECISION_BITS),
+                     0.5 + kk * (1 << _PRECISION_BITS)).astype(np.int64)
+    return first, fixed
+
+
+def _resample_axis(u8: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    first, fixed = _resample_coeffs(u8.shape[axis], out_size)
+    src = np.moveaxis(u8, axis, 0).astype(np.int64)
+    acc = np.full((out_size, *src.shape[1:]), 1 << (_PRECISION_BITS - 1),
+                  np.int64)
+    for k in range(fixed.shape[1]):
+        idx = np.minimum(first + k, src.shape[0] - 1)
+        acc += src[idx] * fixed[:, k].reshape(-1, *[1] * (src.ndim - 1))
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_lanczos_rgba(u8: np.ndarray, width: int, height: int
+                        ) -> np.ndarray:
+    """``PIL.Image.fromarray(u8, 'RGBA').resize((width, height),
+    Image.LANCZOS)`` for an ``[H, W, 4]`` uint8 image: a copy where the size
+    already matches; else premultiplied by alpha (8-bit), resized
+    horizontally then vertically, each pass rounded to 8 bits, and
+    un-premultiplied (8-bit)."""
+    if u8.shape[:2] == (height, width):
+        return u8.copy()
+    a = u8[..., 3:].astype(np.uint32)
+    tmp = u8[..., :3].astype(np.uint32) * a + 128
+    pre = np.concatenate([((tmp >> 8) + tmp) >> 8, a], axis=-1).astype(
+        np.uint8)
+    if width != u8.shape[1]:
+        pre = _resample_axis(pre, width, 1)
+    if height != u8.shape[0]:
+        pre = _resample_axis(pre, height, 0)
+    alpha = pre[..., 3:].astype(np.int64)
+    color = pre[..., :3].astype(np.int64)
+    straight = np.clip(255 * color // np.maximum(alpha, 1), 0, 255)
+    keep = (alpha == 255) | (alpha == 0)
+    color = np.where(keep, color, straight)
+    return np.concatenate([color, alpha], axis=-1).astype(np.uint8)
 
 
 def alpha_composite_np(layers: np.ndarray) -> np.ndarray:

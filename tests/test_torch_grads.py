@@ -220,49 +220,14 @@ def _storage_clamp(clamp, dtype):
     return float(torch.tensor(clamp, dtype=dtype))
 
 
-def _act_deriv(act, order, yy, z, alpha):
-    """csrc/bias_act.cu::mgt_act_deriv."""
-    one = order == 1
-    if act == 'linear':                    # reads neither x nor y
-        return 1.0 if one else 0.0
-    if act == 'relu':
-        return (yy > 0).float() if one else 0 * yy
-    if act == 'lrelu':
-        return torch.where(yy > 0, 1.0, alpha) if one else 0 * yy
-    if act == 'tanh':
-        d = 1 - yy * yy
-        return d if one else -2 * yy * d
-    if act == 'sigmoid':
-        d = yy * (1 - yy)
-        return d if one else d * (1 - 2 * yy)
-    if act == 'elu':
-        return torch.where(yy > 0, 1.0 if one else 0.0, yy + 1)
-    if act == 'selu':
-        sc, al = 1.0507009873554804934, 1.6732632423543772848
-        return torch.where(yy > 0, sc if one else 0.0, yy + sc * al)
-    if act == 'softplus':
-        s = -torch.expm1(-yy)
-        return s if one else (1 - s) * s
-    s = torch.sigmoid(z)                                   # swish
-    return s * (1 + z * (1 - s)) if one else s * (1 - s) * (2 + z * (1 - 2 * s))
-
-
 def _emulated_bias_act_grad(g, x, b, y, dy=None, order=1, act='linear',
                             alpha=None, gain=None, clamp=None):
-    """What the gradient kernel computes."""
-    spec, alpha, gain = tba._resolve(act, alpha, gain, clamp)
-    yy = None if y is None else y.float() / gain
-    z = None
-    if x is not None:
-        z = x.float() + (b.to(x.dtype).float() if b is not None else 0)
-    d = _act_deriv(act, order, yy, z, alpha) * gain * g.float()
-    if order == 2:
-        d = d * dy.float()
-    if clamp is not None:
-        d = torch.where(y.float().abs() < _storage_clamp(clamp, g.dtype), d,
-                        0.0)
+    """What the gradient kernel computes (its plain version,
+    ``bias_act_grad_ref``)."""
+    out = tba.bias_act_grad_ref(g, x, b, y, dy, order, act, alpha, gain,
+                                clamp)
     tba.grad_kernel.launches += 1
-    return d.to(g.dtype)
+    return out
 
 
 def _emulated_upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False,

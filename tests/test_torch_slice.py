@@ -168,18 +168,24 @@ def test_random_noise_follows_the_seed(micro):
     assert torch.equal(a, b) and not torch.equal(a, c)
 
 
+_TEMPLATES = {}
+
+
 def _shaped_snapshot_template(monkeypatch):
     """The JAX snapshot loader builds its template with an eager
     ``init_variables`` (hundreds of op-by-op compiles) and then overwrites
     every leaf with the snapshot's; zeros of the shapes that init traces give
-    the same structure and so the same load."""
+    the same structure and so the same load.  Each config's zeros are built
+    once a process (their ``eval_shape`` traces the whole init)."""
     eager = JaxEnsemble.init_variables
 
     def init_variables(self, key, batch=1, on_cpu=True):
-        shapes = jax.eval_shape(
-            lambda k: eager(self, k, batch=batch, on_cpu=False), key)
-        return jax.tree_util.tree_map(
-            lambda s: np.zeros(s.shape, s.dtype), shapes)
+        if (self.cfg, batch) not in _TEMPLATES:
+            shapes = jax.eval_shape(
+                lambda k: eager(self, k, batch=batch, on_cpu=False), key)
+            _TEMPLATES[self.cfg, batch] = jax.tree_util.tree_map(
+                lambda s: np.zeros(s.shape, s.dtype), shapes)
+        return _TEMPLATES[self.cfg, batch]
     monkeypatch.setattr(JaxEnsemble, 'init_variables', init_variables)
 
 
