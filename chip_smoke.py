@@ -116,14 +116,33 @@ Phases, in order; each raises on failure, and the script then exits non-zero:
    call against a direct launch of K1'.  Every tool's launches of K1',
    K1' grad and K2' are held exactly to ``tools/launches.py``
    (``expected_launches``, ``expected_projector_launches``).
+17. interop and stage 0: a reference SG2-ADA ``.pkl`` of config ``aio``'s
+   largest layer (256 px RGBA, z/w 512, channel_base 16384, bfloat16 at
+   the top 4 resolutions), written from seeded weights (unconditional, and
+   with ``c_dim`` 10): ``cli/generate`` of 8 seeds (and ``--class 3``), one
+   batch through K1'/K2' held to the plain route (float32 blocks within
+   ``TOL_CROSS``; bfloat16 blocks by ``TOL_METRIC_RATIO``),
+   ``cli/convert_pickle`` and ``generate`` of its snapshot, bit for bit;
+   ``cli/export_torch --format pth`` of phase 13's EMA snapshot (bytes,
+   seconds), read back by ``torch_import.load_aio_snapshot`` and sampled bit
+   for bit, and ``cli/compare_renderers`` of the ``.pth``; on phase 13's
+   dataset ``cli/pretrain_renderer`` (tanh, batch 64, 20 steps: seconds a
+   step, PSNR, data wait, peak memory; sigmoid and subpixel 2 steps) and
+   ``cli/pretrain_stn`` (the SG2 D at 256 px, batch 16 of each of the three
+   splits: 20 steps on the pretrained renderer, 4 on the exported one;
+   the simple Ds 2 steps); one micro step of each pretrainer, card against
+   CPU.  Every run's launches of K1', K1' grad and K2' are held exactly to
+   ``tools/launches.py`` (``expected_generator_launches``,
+   ``expected_stn_pretrain_launches``; none for the renderer's).
 
 Each main path (6, 8, 10, 11, 13's CLI step and 6-step loops, 14's steps,
-15's fid2k and each of 16's tools) is driven with every launch count set to
-0 just before it and read just after.  The last two lines are the card's
+15's fid2k, each of 16's tools and each of 17's runs) is driven with every
+launch count set to 0 just before it and read just after.  The last two lines are the card's
 name and power limit (from ``nvidia-smi``) and one JSON object, ``{"ok":
 true, "device": {...}}``; the line before them is ``{"kernels": [...]}``,
 and before it the loop's figures (``{"loop": ...}``), the metrics', the
-tools' and the data-parallel step's, and the total seconds.
+tools', phase 17's (``{"stage0": ...}``) and the data-parallel step's,
+and the total seconds.
 """
 
 import contextlib
@@ -1708,61 +1727,70 @@ def plain_route():
             m.takes_plain = fn
 
 
-def check_metric_batch(model, model32, z, kernels):
-    """One metric batch ``sample_fn(z)`` (``metric_utils.ensemble_fns``)
-    through K1' and K2' (exactly ``expected_launches`` of each model) and
-    through the plain route (no launch), on the extractor's input, for
-    ``model`` and for ``model32``, the same weights with float32 blocks:
-    ``model32``'s two routes within ``TOL_CROSS``; ``model``'s kernels no
-    further from ``model32``'s result than ``TOL_METRIC_RATIO`` times its
-    plain route's mean distance.  Returns the figures."""
+def hold_to_plain(label, sample, sample32, expect, kernels):
+    """One batch, ``sample()`` and ``sample32()`` (the same weights with
+    float32 blocks), each through K1' and K2' (exactly ``expect`` launches)
+    and through the plain route (no launch) on the card: the float32
+    routes within ``TOL_CROSS``; the bfloat16 kernels no further from the
+    float32 result than ``TOL_METRIC_RATIO`` times the plain route's mean
+    distance.  Returns the figures."""
     import torch
-    from montage_gan_tpu_torch.metrics import metric_utils
 
-    def routes(m):
-        sample_fn = metric_utils.ensemble_fns(m)[0]
+    def routes(fn):
         for k in kernels.values():
             k.reset()
         with torch.no_grad():
-            got = metric_utils.images_to_metric_rgb(sample_fn(z))
+            got = fn()
             launched = {name: k.launches for name, k in kernels.items()}
             with plain_route():
-                ref = metric_utils.images_to_metric_rgb(sample_fn(z))
+                ref = fn()
         torch.cuda.synchronize()
-        expect = expected_launches(m)
         plain = {name: k.launches - launched[name]
                  for name, k in kernels.items()}
         if launched != {name: expect.get(name, 0) for name in kernels} or \
                 any(plain.values()) or not torch.isfinite(got).all():
-            raise AssertionError(f'metric batch: launches {launched} through '
+            raise AssertionError(f'{label}: launches {launched} through '
                                  f'the kernels (expected {expect}), {plain} '
                                  'through the plain route')
         return got, ref, launched
 
-    got32, ref32, launched = routes(model32)
+    got32, ref32, launched = routes(sample32)
     err32 = (got32 - ref32).abs().max().item()
     torch.testing.assert_close(got32, ref32, **TOL_CROSS,
-                               msg=lambda m: f'metric batch, float32: {m}')
-    got, ref, _ = routes(model)
+                               msg=lambda m: f'{label}, float32: {m}')
+    got, ref, _ = routes(sample)
     dist_k = (got - got32).abs().mean().item()
     dist_p = (ref - got32).abs().mean().item()
     diff = (got - ref).abs()
     out = dict(f32_max_abs_err=err32, bf16_max_abs_err=diff.max().item(),
                bf16_mean_abs_err=diff.mean().item(),
                bf16_mean_from_f32=dict(kernels=dist_k, plain=dist_p))
-    log(f'  ok  metric batch {list(got.shape)} (the extractor\'s RGB in '
-        f'[0, 255]) through K1\' and K2\' {launched} and through the plain '
-        f'route on the card: float32 blocks max_abs_err {err32:.3g} (atol '
-        f'{TOL_CROSS["atol"]}); bfloat16 blocks max {out["bf16_max_abs_err"]:.4g}, '
-        f'mean {out["bf16_mean_abs_err"]:.4g}, the mean distance from the '
-        f'float32 run {dist_k:.6g} through the kernels, {dist_p:.6g} through '
-        f'the plain route (ratio {dist_k / dist_p:.4f}, limit '
-        f'{TOL_METRIC_RATIO})')
+    log(f'  ok  {label} {list(got.shape)} through K1\' and K2\' {launched} '
+        f'and through the plain route on the card: float32 blocks '
+        f'max_abs_err {err32:.3g} (atol {TOL_CROSS["atol"]}); bfloat16 blocks '
+        f'max {out["bf16_max_abs_err"]:.4g}, mean '
+        f'{out["bf16_mean_abs_err"]:.4g}, the mean distance from the float32 '
+        f'run {dist_k:.6g} through the kernels, {dist_p:.6g} through the '
+        f'plain route (ratio {dist_k / dist_p:.4f}, limit {TOL_METRIC_RATIO})')
     if not dist_k <= TOL_METRIC_RATIO * dist_p:
-        raise AssertionError(f'metric batch, bfloat16: the kernels\' mean '
+        raise AssertionError(f'{label}, bfloat16: the kernels\' mean '
                              f'distance from the float32 run {dist_k:.6g}, '
                              f'the plain route\'s {dist_p:.6g}')
     return out
+
+
+def check_metric_batch(model, model32, z, kernels):
+    """One metric batch ``sample_fn(z)`` (``metric_utils.ensemble_fns``) on
+    the extractor's input (RGB in [0, 255]) held to the plain route by
+    ``hold_to_plain``, ``model32`` being ``model`` with float32 blocks."""
+    from montage_gan_tpu_torch.metrics import metric_utils
+
+    def sample(m):
+        fn = metric_utils.ensemble_fns(m)[0]
+        return lambda: metric_utils.images_to_metric_rgb(fn(z))
+    return hold_to_plain('metric batch (the extractor\'s RGB in [0, 255])',
+                         sample(model), sample(model32),
+                         expected_launches(model), kernels)
 
 
 def phase_metrics(card, kernels, tmp, device='cuda'):
@@ -2248,6 +2276,380 @@ def phase_tools(card, kernels, tmp, device='cuda'):
     return out
 
 
+# Phase 17: interop and stage 0.
+STAGE0_STEPS = 20            # pretrain_renderer steps; pretrain_stn 0..19
+STAGE0_RENDERER_BATCH = 64   # the JAX CLI's defaults
+STAGE0_STN_BATCH = 16
+# config aio's largest layer as a reference Generator's kwargs
+PKL_KW = dict(z_dim=512, w_dim=512, img_resolution=256, img_channels=4,
+              init_res=[8, 8], mapping_kwargs=dict(num_layers=8),
+              synthesis_kwargs=dict(channel_base=16384, channel_max=512,
+                                    num_fp16_res=4, conv_clamp=256,
+                                    conv_config_index=3, init_res=[8, 8]))
+MICRO_STAGE0 = dict(res=16, layers=2, batch=2)
+
+
+def check_pkl_batch(mapping, synthesis, kw, z, kernels, device):
+    """One batch of a ``.pkl`` generator held to the plain route by
+    ``hold_to_plain`` (launches exactly ``expected_generator_launches``),
+    beside a copy of it with float32 blocks."""
+    import copy as copy_
+    from montage_gan_tpu_torch.tools.launches import (
+        expected_generator_launches)
+    from montage_gan_tpu_torch.utils.pkl_import import generator_modules
+
+    kw32 = copy_.deepcopy(kw)
+    kw32['synthesis_kwargs']['num_fp16_res'] = 0
+    m32, s32 = generator_modules(kw32)
+    m32.load_state_dict(mapping.state_dict())
+    s32.load_state_dict(synthesis.state_dict())
+    m32, s32 = (m.to(device).eval() for m in (m32, s32))
+
+    def sample(m, s):
+        return lambda: s(m(z), noise_mode='const')
+    return hold_to_plain('.pkl generator batch', sample(mapping, synthesis),
+                         sample(m32, s32),
+                         expected_generator_launches(mapping, synthesis),
+                         kernels)
+
+
+def stage0_micro_steps(kernels, device='cuda'):
+    """One micro step of each pretrainer with the same weights and draws,
+    CPU (plain versions) against the card (kernels): the renderer step
+    (cuDNN only), and the STN GAN's D step (R1 by double backward through
+    K1' and K1' grad) and STN step with a narrow SG2 D, its launches
+    exactly ``expected_stn_pretrain_launches``.  Losses within
+    ``TOL_TRAIN_LOSS``; the renderer's gradients within ``TOL_TRAIN_GRAD``
+    of the step's largest entry; D's and the STN's within the larger of
+    that and ten times the spread of the CPU with weights moved by 1e-6 (as
+    ``tools/ddp_check.py`` bounds the AIO step's phases): R1's gradients
+    are ill-conditioned (phase 12), and the STN's reaches it through the
+    renderer's and D's input gradients, piecewise constant in their inputs,
+    which the STN's sub-pixel shifts move."""
+    import numpy as np
+    import torch
+    from montage_gan_tpu_torch.data.synthetic import synthetic_batch
+    from montage_gan_tpu_torch.models.discriminator import Discriminator
+    from montage_gan_tpu_torch.models.renderer import build_renderer
+    from montage_gan_tpu_torch.models.stn import STN, auto_stn_stages
+    from montage_gan_tpu_torch.tools.launches import (
+        expected_stn_pretrain_launches)
+    from montage_gan_tpu_torch.training import pretrain
+    from montage_gan_tpu_torch.training.train_step import AMSGrad
+    from montage_gan_tpu_torch.utils.image_utils import generate_pseudo_fake_np
+
+    res, nl, b = (MICRO_STAGE0[k] for k in ('res', 'layers', 'batch'))
+    g = torch.Generator().manual_seed(SEED + 17)
+
+    def seeded(m):
+        m.reset_parameters(g)
+        with torch.no_grad():
+            for name, p in m.named_parameters():
+                if name.endswith('bias') or name.startswith('fc_loc.2'):
+                    p.add_(torch.randn(p.shape, generator=g) * 0.05)
+        return m
+
+    renderer = seeded(build_renderer('tanh', img_resolution=res,
+                                     img_channels=4, img_layers=nl))
+    stn = seeded(STN(img_resolution=res, img_channels=4, img_layers=nl,
+                     num_stages=auto_stn_stages(res)))
+    d = seeded(Discriminator(img_resolution=res, img_channels=4,
+                             channel_base=256, channel_max=32))
+    rng = np.random.RandomState(SEED + 17)
+    data = synthetic_batch(rng, 3 * b, nl, res)
+    pseudo = torch.from_numpy(generate_pseudo_fake_np(data))
+    data = torch.from_numpy(data)
+    t = torch.from_numpy(rng.uniform(-1, 1, (b * nl, 2)).astype(np.float32))
+    out = {}
+
+    def renderer_run(r, dev):
+        r = copy.deepcopy(r).to(dev)
+        opt = AMSGrad(r.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+        loss, psnr = pretrain.renderer_step(r, opt, data[:b].to(dev),
+                                            t.to(dev))
+        return loss.cpu(), [p.grad.cpu() for p in r.parameters()]
+
+    def stn_run(nets, dev):
+        dd, ss, rr = (copy.deepcopy(m).to(dev) for m in nets)
+        rr.requires_grad_(False)
+        opt_d = torch.optim.Adam(dd.parameters(), lr=1e-3)
+        opt_s = torch.optim.Adam(ss.parameters(), lr=1e-3)
+        rec_d = pretrain.stn_d_step(dd, opt_d, ss, rr, data[:b].to(dev),
+                                    pseudo[b:2 * b].to(dev))
+        d_grads = [p.grad.cpu() for p in dd.parameters()]
+        rec_g = pretrain.stn_g_step(ss, opt_s, dd, rr, pseudo[2 * b:].to(dev))
+        return ({k: float(v) for k, v in {**rec_d, **rec_g}.items()},
+                d_grads, [p.grad.cpu() for p in ss.parameters()])
+
+    loss_ref, grads_ref = renderer_run(renderer, 'cpu')
+    loss, grads = renderer_run(renderer, device)
+    worst, _ = spread(grads, grads_ref)
+    if not (abs(loss.item() - loss_ref.item()) <= TOL_TRAIN_LOSS
+            and worst <= TOL_TRAIN_GRAD):
+        raise AssertionError(f'renderer micro step: loss {loss.item()} '
+                             f'against {loss_ref.item()}, gradients '
+                             f'{worst:.3g} of the largest entry')
+    out['renderer'] = dict(loss_abs_err=abs(loss.item() - loss_ref.item()),
+                           grad_err=worst)
+    log(f'  ok  pretrain_renderer micro step, card against CPU: loss '
+        f'{loss.item():.8g} (CPU {loss_ref.item():.8g}, atol '
+        f'{TOL_TRAIN_LOSS}); gradients within {worst:.3g} of the largest '
+        f'entry (limit {TOL_TRAIN_GRAD})')
+
+    nets = (d, stn, renderer)
+    rec_ref, dg_ref, sg_ref = stn_run(nets, 'cpu')
+    _, dg_moved, sg_moved = stn_run(tuple(nudged_copy(m) for m in nets),
+                                    'cpu')
+    for k in kernels.values():
+        k.reset()
+    rec, dg, sg = stn_run(nets, device)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    expect = expected_stn_pretrain_launches(d, 1)
+    if launches != {name: expect.get(name, 0) for name in kernels}:
+        raise AssertionError(f'STN micro step: launches {launches}, '
+                             f'expected {expect}')
+    loss_err = max(abs(rec[k] - rec_ref[k]) for k in rec_ref)
+    d_err, _ = spread(dg, dg_ref)
+    s_err, _ = spread(sg, sg_ref)
+    d_floor, _ = spread(dg_moved, dg_ref)
+    s_floor, _ = spread(sg_moved, sg_ref)
+    d_bound = max(TOL_TRAIN_GRAD, 10 * d_floor)
+    s_bound = max(TOL_TRAIN_GRAD, 10 * s_floor)
+    if not (loss_err <= TOL_TRAIN_LOSS and d_err <= d_bound
+            and s_err <= s_bound):
+        raise AssertionError(f'STN micro step: losses {rec} against '
+                             f'{rec_ref}, D gradients {d_err:.3g} (bound '
+                             f'{d_bound:.3g}), STN gradients {s_err:.3g} '
+                             f'(bound {s_bound:.3g}) of the largest entry')
+    out['stn'] = dict(loss_abs_err=loss_err, d_grad_err=d_err,
+                      d_grad_spread_cpu=d_floor, d_grad_bound=d_bound,
+                      stn_grad_err=s_err, stn_grad_spread_cpu=s_floor,
+                      stn_grad_bound=s_bound, launches=launches)
+    log(f'  ok  pretrain_stn micro step (narrow SG2 D, R1), card against '
+        f'CPU: losses within {loss_err:.3g} (atol {TOL_TRAIN_LOSS}); D '
+        f'gradients within {d_err:.3g} of the largest entry (CPU moved '
+        f'1e-6: {d_floor:.3g}, limit {d_bound:.3g}); STN gradients within '
+        f'{s_err:.3g} (CPU moved 1e-6: {s_floor:.3g}, limit '
+        f'{s_bound:.3g}); launches {launches}')
+    return out
+
+
+def phase_stage0(card, kernels, tmp, device='cuda'):
+    """Checkpoint interop and stage-0 pretraining at config ``aio``'s
+    widths, on phase 13's dataset and EMA snapshot: a reference SG2-ADA
+    ``.pkl`` of config aio's largest layer (seeded, unconditional and with
+    ``c_dim`` 10) through ``cli/generate`` (with ``--class 3``), a batch
+    held to the plain route, ``convert-pickle`` and ``generate`` of the
+    snapshot bit for bit; ``export-torch --format pth`` of the EMA snapshot
+    read back through ``torch_import`` (sampling bit for bit) and scored by
+    ``compare-renderers``; ``pretrain-renderer`` (tanh at batch 64, then
+    sigmoid and subpixel) and ``pretrain-stn`` (the SG2 D at batch 16 on the
+    pretrained renderer and on the exported one, then the simple Ds); one
+    micro step of each pretrainer, card against CPU.  Every run's launches
+    of K1', K1' grad and K2' are held exactly to ``tools/launches.py``."""
+    import statistics as st
+    import numpy as np
+    import torch
+    from montage_gan_tpu_torch.cli import (compare_renderers, convert_pickle,
+                                           export_torch, generate,
+                                           pretrain_renderer, pretrain_stn)
+    from montage_gan_tpu_torch.tools.launches import (
+        expected_generator_launches, expected_stn_pretrain_launches)
+    from montage_gan_tpu_torch.tools.seeded import (seeded_generator,
+                                                    write_persistence_pkl)
+    from montage_gan_tpu_torch.training.pretrain import build_discriminator
+    from montage_gan_tpu_torch.utils import torch_import
+    from montage_gan_tpu_torch.utils.checkpoint import load_network
+    from montage_gan_tpu_torch.utils.pkl_import import generator_from_pkl
+    from montage_gan_tpu_torch.utils.png import read_png_rgba
+    from montage_gan_tpu_torch.utils.serving import build_inference_fn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, 'stage0')
+    os.makedirs(work)
+    layers = os.path.join(tmp, 'layers')
+    out = {'launches': {}}
+
+    def counted(label, fn, expect):
+        for k in kernels.values():
+            k.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got = {name: k.launches for name, k in kernels.items()}
+        want = {name: expect.get(name, 0) for name in kernels}
+        if got != want:
+            raise AssertionError(f'{label}: launches {got}, expected {want}')
+        out['launches'][label] = got
+        return result, sec
+
+    # 1. a reference .pkl: generate, the plain route, convert-pickle
+    seeds = list(range(8))
+    pkls = {}
+    for c_dim in (0, 10):
+        kw = dict(PKL_KW, c_dim=c_dim)
+        path = os.path.join(work, f'net-c{c_dim}.pkl')
+        t0 = time.perf_counter()
+        write_persistence_pkl(path, {'G_ema': seeded_generator(kw, SEED)},
+                              {'G_ema': kw})
+        pkls[c_dim] = path
+        log(f'[stage0] wrote {path}: {os.path.getsize(path)} bytes in '
+            f'{time.perf_counter() - t0:.1f} s')
+    mapping, synthesis, kw = generator_from_pkl(pkls[0])
+    per_image = expected_generator_launches(mapping, synthesis)
+    for c_dim, extra in ((0, []), (10, ['--class', '3'])):
+        d = os.path.join(work, f'pkl-c{c_dim}')
+        _, sec = counted(f'generate_pkl_c{c_dim}', lambda: generate.main([
+            '--network', pkls[c_dim], '--seeds', '0-7', '--outdir', d,
+            '--device', device, *extra]),
+            {k: len(seeds) * v + (len(seeds) if k == 'bias_act' and c_dim
+                                  else 0) for k, v in per_image.items()})
+        imgs = [read_png_rgba(os.path.join(d, f'seed{s:04d}.png'))
+                for s in seeds]
+        out[f'generate_pkl_c{c_dim}'] = dict(seconds=sec,
+                                             images_per_s=len(seeds) / sec)
+        log(f'  ok  cli/generate --network {os.path.basename(pkls[c_dim])} '
+            f'--seeds 0-7 {" ".join(extra)}: {len(seeds)} RGBA PNGs '
+            f'{imgs[0].shape} in {sec:.2f} s ({len(seeds) / sec:.2f} '
+            f'images/s, the pickle read included)  card: {card}')
+    z = torch.from_numpy(seed_z(seeds, kw['z_dim'])).to(device)
+    mapping, synthesis = mapping.to(device), synthesis.to(device)
+    out['pkl_batch'] = check_pkl_batch(mapping, synthesis, kw, z, kernels,
+                                       device)
+    t0 = time.perf_counter()
+    snap = convert_pickle.main(['--source', pkls[0], '--dest',
+                                os.path.join(work, 'net.pt')])
+    convert_s = time.perf_counter() - t0
+    d = os.path.join(work, 'snap')
+    counted('generate_converted', lambda: generate.main([
+        '--network', snap, '--seeds', '0-7', '--save-layers', '--outdir', d,
+        '--device', device]), {k: len(seeds) * v
+                               for k, v in per_image.items()})
+    for s_ in seeds:
+        a = read_png_rgba(os.path.join(work, 'pkl-c0', f'seed{s_:04d}.png'))
+        b = read_png_rgba(os.path.join(d, f'seed{s_:04d}-0_image.png'))
+        if not np.array_equal(a, b):
+            raise AssertionError(f'seed {s_}: the converted snapshot\'s '
+                                 'image is not the .pkl\'s')
+    out['convert_pickle_s'] = convert_s
+    log(f'  ok  cli/convert_pickle in {convert_s:.1f} s; cli/generate of the '
+        'snapshot equals the .pkl\'s images bit for bit (8 seeds)')
+    del mapping, synthesis
+
+    # 2. export-torch of phase 13's EMA snapshot, read back
+    ema = os.path.join(tmp, TOOLS_SNAPSHOT)
+    pth = os.path.join(work, 'network-snapshot.pth')
+    _, export_s = counted('export_torch', lambda: export_torch.main([
+        '--network', ema, '--dest', pth]), {})
+    cfg, model = load_network(ema, device=device)
+    t0 = time.perf_counter()
+    back = torch_import.load_aio_snapshot(pth, cfg).to(device).eval()
+    import_s = time.perf_counter() - t0
+    z = torch.from_numpy(seed_z(seeds, cfg.z_dim)).to(device)
+    for composite in ('alpha', 'renderer'):
+        ref = build_inference_fn(cfg, model, composite=composite)(z)
+        got = build_inference_fn(cfg, back, composite=composite)(z)
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f'export -> import: {composite} sampling '
+                                 'differs from the snapshot\'s')
+    del model, back
+    scores, cmp_s = counted('compare_renderers_pth', lambda: (
+        compare_renderers.main(['--data', layers, '--ckpt', ema, '--ckpt',
+                                pth, '--batch', '16', '--device', device])),
+        {})
+    if scores[pth] != scores[ema]:
+        raise AssertionError(f'compare_renderers: {scores}')
+    out['export'] = dict(bytes=os.path.getsize(pth), export_s=export_s,
+                         import_s=import_s, compare_renderers_s=cmp_s,
+                         psnr_db=scores[pth])
+    log(f'  ok  cli/export_torch --format pth: {os.path.getsize(pth)} bytes '
+        f'in {export_s:.2f} s; torch_import.load_aio_snapshot in '
+        f'{import_s:.2f} s samples as the snapshot, bit for bit (alpha and '
+        f'renderer composites); compare_renderers of the .pth: '
+        f'{scores[pth]:.4f} dB, the snapshot\'s  card: {card}')
+
+    # 3. pretrain-renderer at batch 64, then sigmoid and subpixel
+    def figures(result, steps_from=1):
+        later = result.step_s[steps_from:]
+        return dict(steps=len(result.step_s),
+                    s_per_step=st.median(later) if later else None,
+                    first_step_s=result.step_s[0],
+                    data_wait_s=result.data_wait_s,
+                    peak_bytes=result.peak_bytes)
+
+    runs = {}
+    for rtype, steps, batch in (('tanh', STAGE0_STEPS, STAGE0_RENDERER_BATCH),
+                                ('sigmoid', 2, STAGE0_RENDERER_BATCH),
+                                ('subpixel', 2, STAGE0_RENDERER_BATCH)):
+        res, sec = counted(f'pretrain_renderer_{rtype}',
+                           lambda: pretrain_renderer.main([
+                               '--data', layers, '--outdir',
+                               os.path.join(work, f'renderer-{rtype}'),
+                               '--renderer-type', rtype, '--batch',
+                               str(batch), '--steps', str(steps),
+                               '--device', device]), {})
+        if not np.isfinite(res.loss + res.psnr).all():
+            raise AssertionError(f'pretrain_renderer {rtype}: {res.loss}')
+        runs[rtype] = res
+        out[f'pretrain_renderer_{rtype}'] = dict(
+            figures(res), batch=batch, seconds=sec, psnr_first=res.psnr[0],
+            psnr_last=res.psnr[-1], loss_first=res.loss[0],
+            loss_last=res.loss[-1])
+        f = out[f'pretrain_renderer_{rtype}']
+        log(f'  ok  pretrain_renderer {rtype} batch {batch}, {steps} steps: '
+            f'{f["s_per_step"]:.4f} s a step after step 1 (step 1 '
+            f'{f["first_step_s"]:.2f} s), PSNR {res.psnr[0]:.2f} -> '
+            f'{res.psnr[-1]:.2f} dB, data wait {res.data_wait_s:.2f} s, peak '
+            f'{(res.peak_bytes or 0) / 2**30:.2f} GiB; no kernel of the five '
+            f'launched (cuDNN)  card: {card}')
+    renderer_ckpt = runs['tanh'].snapshots[-1]
+    del runs
+
+    # 4. pretrain-stn: the SG2 D on each renderer, then the simple Ds
+    from montage_gan_tpu_torch.data.dataset import DatasetAIO
+    d_sg2 = build_discriminator('sg2', DatasetAIO(layers).resolution, 4)
+    for label, disc, steps, ckpt in (
+            ('sg2', 'sg2', STAGE0_STEPS - 1, renderer_ckpt),
+            ('sg2_exported_renderer', 'sg2', 3, pth),
+            ('simple', 'simple', 1, renderer_ckpt),
+            ('simplev2', 'simplev2', 1, renderer_ckpt)):
+        expect = (expected_stn_pretrain_launches(d_sg2, steps + 1)
+                  if disc == 'sg2' else {})
+        res, sec = counted(f'pretrain_stn_{label}', lambda: pretrain_stn.main([
+            '--data', layers, '--outdir', os.path.join(work, f'stn-{label}'),
+            '--renderer-ckpt', ckpt, '--discriminator', disc, '--batch',
+            str(STAGE0_STN_BATCH), '--steps', str(steps), '--device',
+            device]), expect)
+        last = res.records[-1]
+        if not all(math.isfinite(v) for r in res.records for v in r.values()):
+            raise AssertionError(f'pretrain_stn {label}: {res.records}')
+        out[f'pretrain_stn_{label}'] = dict(
+            figures(res), batch=STAGE0_STN_BATCH, seconds=sec,
+            first=res.records[0], last=last)
+        f = out[f'pretrain_stn_{label}']
+        log(f'  ok  pretrain_stn {label} batch {STAGE0_STN_BATCH} (x3), '
+            f'{steps + 1} steps: {f["s_per_step"]:.4f} s a step after step 0 '
+            f'(step 0 {f["first_step_s"]:.2f} s), data wait '
+            f'{res.data_wait_s:.2f} s, peak '
+            f'{(res.peak_bytes or 0) / 2**30:.2f} GiB; '
+            f'D loss {res.records[0]["d_loss"]:.4f} -> {last["d_loss"]:.4f}, '
+            f'gp {last["gp"]:.4f}, renderer MSE {last["r_loss"]:.6f}; '
+            f'launches {out["launches"][f"pretrain_stn_{label}"]}  card: '
+            f'{card}')
+        del res
+
+    # 5. one micro step of each pretrainer, card against CPU
+    out['micro_steps'] = stage0_micro_steps(kernels, device)
+    out['phase_s'] = time.perf_counter() - t_phase
+    log(f'[stage0] {out["phase_s"]:.1f} s')
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, 'montage_gan_tpu_torch', 'csrc')):
         sys.exit('chip_smoke.py: montage_gan_tpu_torch/ is not beside this '
@@ -2321,6 +2723,8 @@ def main():
         metrics = phase_metrics(card, {k: kernels[k] for k in slice_kernels},
                                 tmp)
         tools = phase_tools(card, {k: kernels[k] for k in tool_kernels}, tmp)
+        stage0 = phase_stage0(card, {k: kernels[k] for k in tool_kernels},
+                              tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2357,6 +2761,11 @@ def main():
             # tools/launches.py (export: the tracing, which launches none)
             rows[-1]['launches_tools'] = {
                 label: got[name] for label, got in tools['launches'].items()}
+        if name in tool_kernels:
+            # interop and stage 0 at config aio, each checked against
+            # tools/launches.py (the renderer's pretraining launches none)
+            rows[-1]['launches_stage0'] = {
+                label: got[name] for label, got in stage0['launches'].items()}
         if row_loop is not None:
             # the training CLI's one accumulated step at batch 32 (and its
             # EMA grid), checked against expected_train_launches
@@ -2385,6 +2794,8 @@ def main():
     log(json.dumps({'metrics': metrics, 'card': card}))
     log(json.dumps({'tools': {k: v for k, v in tools.items()
                               if k != 'launches'}, 'card': card}))
+    log(json.dumps({'stage0': {k: v for k, v in stage0.items()
+                               if k != 'launches'}, 'card': card}))
     log(json.dumps({'ddp': [{k: v for k, v in r.items()
                              if k not in ('expected', 'launches')}
                             for r in ddp], 'card': card}))

@@ -17,15 +17,14 @@ PORTED = {'train-aio': 'train_aio', 'generate': 'generate',
           'calc-metrics': 'calc_metrics', 'check-weights': 'check_weights',
           'projector': 'projector', 'style-mixing': 'style_mixing',
           'export-model': 'export_model',
-          'compare-renderers': 'compare_renderers'}
+          'compare-renderers': 'compare_renderers',
+          'convert-pickle': 'convert_pickle', 'export-torch': 'export_torch',
+          'pretrain-renderer': 'pretrain_renderer',
+          'pretrain-stn': 'pretrain_stn'}
 # the JAX package's other commands → the ROADMAP queue item they wait for
+# (item 7's single-GAN path)
 WAITING = {'train': 'queue 1, item 7', 'run-recipe': 'queue 1, item 7',
-           'dataset-tool': 'queue 1, item 7',
-           'export-torch': 'queue 1, item 7',
-           'pretrain-renderer': 'queue 1, item 7',
-           'pretrain-stn': 'queue 1, item 7',
-           'convert-pickle': 'queue 1, item 7'}
-
+           'dataset-tool': 'queue 1, item 7'}
 
 def main(argv: Optional[Sequence[str]] = None):
     argv = list(sys.argv[1:] if argv is None else argv)

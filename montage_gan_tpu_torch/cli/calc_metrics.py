@@ -10,7 +10,8 @@ calc_metrics.py:29-191), with ``argparse`` in place of click and a
 ``--network`` takes the port's EMA snapshot (``ema-snapshot-*.pt``, or any
 ``utils.checkpoint.save_checkpoint`` file) or a JAX EMA snapshot
 (``.msgpack`` with its ``.json``), through ``utils/checkpoint.load_network``;
-a reference ``.pkl`` raises (ROADMAP queue 1, item 7).  Each result is
+a reference ``.pkl`` raises (ROADMAP queue 1, item 7, the single-GAN
+path; ``convert-pickle`` makes a snapshot of it).  Each result is
 printed and appended to ``metric-<name>.jsonl`` beside the snapshot.
 ``--gpus N`` starts N ranks on this host, one per card, through
 ``parallel/distributed.launch`` (the route of ``train_aio --gpus``): they
@@ -105,9 +106,10 @@ def main(argv: Optional[Sequence[str]] = None):
     opts = make_parser().parse_args(argv)
     if opts.network_path.endswith('.pkl'):
         raise NotImplementedError(
-            f'--network {opts.network_path}: a reference pickle waits for '
-            'ROADMAP queue 1, item 7 (checkpoint interop); pass a port '
-            'snapshot (.pt) or a JAX EMA snapshot (.msgpack)')
+            f'--network {opts.network_path}: scoring a reference pickle '
+            'waits for ROADMAP queue 1, item 7 (the single-GAN path: its '
+            'ImageFolderDataset); convert it with convert-pickle, or pass a '
+            'port snapshot (.pt) or a JAX EMA snapshot (.msgpack)')
     opts.metric_list = metric_main.check_metrics(opts.metrics.split(','))
     if opts.num_devices < 1:
         raise ValueError(f'--gpus {opts.num_devices}')

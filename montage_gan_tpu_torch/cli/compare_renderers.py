@@ -5,9 +5,10 @@ dataset (randomly placed with ``--random-place``) is rendered through each
 checkpoint's renderer and scored by its PSNR against the alpha composite of
 the same layers; the average over the samples is reported per checkpoint.
 A checkpoint is a JAX ``.msgpack`` renderer checkpoint (``{'renderer':
-{...}}`` or the bare variable tree) or a port snapshot holding
-``renderer.*`` (an EMA snapshot of ``train_aio``); a reference ``.pth.tar``
-waits for ROADMAP queue 1, item 7.
+{...}}`` or the bare variable tree), a reference ``.pth``/``.pth.tar``
+(its ``renderer`` entry or a bare state dict, ``utils/torch_import.py``),
+a port renderer checkpoint of ``cli/pretrain_renderer.py`` or a port
+snapshot holding ``renderer.*`` (an EMA snapshot of ``train_aio``).
 
     python -m montage_gan_tpu_torch.cli.compare_renderers --data DIR \\
         --ckpt a.msgpack --ckpt ema-snapshot-000100.pt [--device cuda]
@@ -30,12 +31,12 @@ from ..utils.image_utils import normalize_minus11, random_position
 
 
 def renderer_state(path: str, renderer_type: str) -> Dict[str, torch.Tensor]:
-    """The renderer's state dict from a JAX ``.msgpack`` or a port
-    snapshot."""
+    """The renderer's state dict from a JAX ``.msgpack``, a reference
+    ``.pth``/``.pth.tar``, a port renderer checkpoint (``renderer`` entry)
+    or a port snapshot."""
     if path.endswith(('.pth', '.pth.tar')):
-        raise NotImplementedError(f'{path}: reference renderer checkpoints '
-                                  'are not ported yet, ROADMAP queue 1, '
-                                  'item 7')
+        from ..utils import torch_import
+        return torch_import.renderer_state(torch_import.load_torch_file(path))
     if path.endswith('.msgpack'):
         from ..utils.checkpoint import read_flax_msgpack
         from ..utils.weights import renderer_state_dict
@@ -44,6 +45,8 @@ def renderer_state(path: str, renderer_type: str) -> Dict[str, torch.Tensor]:
             raw = raw['renderer']
         return renderer_state_dict(raw, renderer_type)
     ckpt = torch.load(path, map_location='cpu', weights_only=True)
+    if 'renderer' in ckpt:                 # cli/pretrain_renderer.py
+        return ckpt['renderer']
     state = {k[len('renderer.'):]: v for k, v in ckpt['state_dict'].items()
              if k.startswith('renderer.')}
     if not state:
@@ -75,8 +78,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
                         'dirs)')
     p.add_argument('--ckpt', dest='ckpts', required=True, action='append',
                    metavar='PATH',
-                   help='renderer checkpoint: JAX .msgpack or port snapshot; '
-                        'repeatable')
+                   help='renderer checkpoint: JAX .msgpack, reference '
+                        '.pth.tar or port .pt; repeatable')
     p.add_argument('--renderer-type', choices=['tanh', 'sigmoid', 'subpixel'],
                    default='tanh')
     p.add_argument('--batch', type=int, default=16)

@@ -5,9 +5,11 @@ montage as an RGBA PNG (the alpha composite, or the learned renderer with
 ``--composite renderer``) and, with ``--save-layers``, each placed layer;
 ``--projected-w`` replays a projector result (``projected_w.npz``) through
 synthesis and the STN instead (``proj{idx:02d}.png``).  ``--network`` takes
-a port checkpoint (``utils.checkpoint.save_checkpoint``) or a JAX EMA
-snapshot (``.msgpack`` with its ``.json``); a reference ``.pkl`` waits for
-ROADMAP queue 1, item 7.
+a port checkpoint (``utils.checkpoint.save_checkpoint``), a JAX EMA
+snapshot (``.msgpack`` with its ``.json``) or a reference SG2-ADA ``.pkl``
+(read by the allowlist unpickler of ``utils/pkl_import.py``): its one
+generator writes ``seed{seed:04d}.png`` (RGBA or RGB), with ``--class`` the
+label of a conditional network.
 
     python -m montage_gan_tpu_torch.cli.generate --network CKPT \\
         --seeds 0-7 --outdir out [--device cuda]
@@ -31,7 +33,7 @@ import torch
 from ..ops.composite import alpha_composite
 from ..utils.checkpoint import load_network
 from ..utils.image_utils import normalize_zero1
-from ..utils.png import write_png_rgba
+from ..utils.png import write_png, write_png_rgba
 from ..utils.serving import COMPOSITES, build_inference_fn
 
 
@@ -77,16 +79,85 @@ def replay(model, ws: torch.Tensor, composite: str = 'alpha'):
     return placed, img.clamp(0, 1)
 
 
+def pkl_label(c_dim: int, class_idx: Optional[int], error) -> Optional[
+        torch.Tensor]:
+    """The one-hot label ``[1, c_dim]`` of ``--class`` (the reference's
+    contract, generate.py:110-118): a conditional network needs a label in
+    range (``error`` is called otherwise); on an unconditional one
+    ``--class`` warns and is ignored."""
+    if c_dim == 0:
+        if class_idx is not None:
+            print('warn: --class=lbl ignored when running on an '
+                  'unconditional network')
+        return None
+    if class_idx is None:
+        error('Must specify class label with --class when using a '
+              'conditional network')
+    if not 0 <= class_idx < c_dim:
+        error(f'--class={class_idx} out of range for c_dim={c_dim}')
+    label = torch.zeros(1, c_dim)
+    label[0, class_idx] = 1
+    return label
+
+
+def write_image(path: str, img01: np.ndarray) -> None:
+    """An ``[H, W, 4|3]`` image in [0, 1] as an RGBA or RGB PNG."""
+    write_png(path, to_u8(img01))
+
+
+def generate_pkl(args, device: torch.device, error) -> None:
+    """The monolithic generator of a reference ``.pkl`` (reference flow:
+    generate.py:86-124): z from ``RandomState(seed)`` → mapping (with the
+    label, ``--trunc``) → synthesis (``--noise-mode``) → ``seed{seed:04d}
+    .png``; or ``--projected-w`` replayed through its synthesis."""
+    from ..utils.pkl_import import generator_from_pkl
+    mapping, synthesis, kw = generator_from_pkl(args.network)
+    mapping, synthesis = mapping.to(device), synthesis.to(device)
+    if args.projected_w is not None:
+        ws_all = np.load(args.projected_w)['w']
+        if ws_all.ndim != 3 or ws_all.shape[1:] != (synthesis.num_ws,
+                                                    kw['w_dim']):
+            raise ValueError(f'projected_w shape {ws_all.shape} does not '
+                             f'match the generator ({synthesis.num_ws}, '
+                             f'{kw["w_dim"]})')
+        for idx in range(ws_all.shape[0]):
+            print(f'Replaying projected w {idx} ...')
+            ws = torch.from_numpy(ws_all[idx:idx + 1].astype(np.float32))
+            with torch.inference_mode():
+                img = synthesis(ws.to(device), noise_mode=args.noise_mode)
+            write_image(f'{args.outdir}/proj{idx:02d}.png',
+                        (img[0] * 0.5 + 0.5).cpu().numpy())
+        return
+    label = pkl_label(int(kw.get('c_dim', 0) or 0), args.class_idx, error)
+    if label is not None:
+        label = label.to(device)
+    generator = torch.Generator(device=device)
+    for seed in args.seeds:
+        print(f'Generating image for seed {seed} ...')
+        z = torch.from_numpy(np.random.RandomState(seed).randn(1, kw['z_dim'])
+                             .astype(np.float32)).to(device)
+        generator.manual_seed(seed)
+        with torch.inference_mode():
+            ws = mapping(z, label, truncation_psi=args.truncation_psi)
+            img = synthesis(ws, noise_mode=args.noise_mode,
+                            generator=generator)
+        write_image(f'{args.outdir}/seed{seed:04d}.png',
+                    (img[0] * 0.5 + 0.5).cpu().numpy())
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     p = argparse.ArgumentParser(description='Generate montage images (RGBA) '
                                             'from a snapshot.')
     p.add_argument('--network', required=True, metavar='PATH',
-                   help='port checkpoint, or JAX EMA snapshot (.msgpack + .json)')
+                   help='port checkpoint, JAX EMA snapshot (.msgpack + .json) '
+                        'or reference SG2-ADA .pkl')
     p.add_argument('--seeds', type=parse_range, default=None)
     p.add_argument('--projected-w', metavar='FILE', default=None,
                    help='replay a projector result (projected_w.npz) '
                         'through synthesis instead of sampling seeds')
     p.add_argument('--trunc', dest='truncation_psi', type=float, default=1.0)
+    p.add_argument('--class', dest='class_idx', type=int, default=None,
+                   help='class label of a conditional .pkl network')
     p.add_argument('--noise-mode', choices=['const', 'random', 'none'],
                    default='const')
     p.add_argument('--outdir', required=True, metavar='DIR')
@@ -97,14 +168,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = p.parse_args(argv)
     if args.projected_w is None and args.seeds is None:
         p.error('--seeds is required when --projected-w is not given')
-    if args.network.endswith('.pkl'):
-        raise NotImplementedError(f'{args.network}: reference .pkl networks '
-                                  'are not ported yet, ROADMAP queue 1, '
-                                  'item 7')
-
     device = torch.device(args.device)
     os.makedirs(args.outdir, exist_ok=True)
+    if args.network.endswith('.pkl'):
+        return generate_pkl(args, device, p.error)
+
     cfg, model = load_network(args.network, device=device)
+    if args.class_idx is not None:
+        print('warn: --class=lbl ignored when running on an unconditional '
+              'network')
 
     if args.projected_w is not None:
         ws_all = np.load(args.projected_w)['w']

@@ -24,7 +24,9 @@ the world size and its card come from ``RANK``, ``WORLD_SIZE`` and
 ``LOCAL_RANK`` (torchrun's names).  Only rank 0 writes files.  Flags that
 wait for another part of the port raise with the ROADMAP queue item they
 wait for (``WAITING``); the TPU's dispatch machinery has no counterpart
-(``NOT_PORTED``).
+(``NOT_PORTED``).  ``--renderer-import`` is accepted and not read, as in
+the JAX CLI, which never reads ``opts.renderer_import``: the run prints one
+line saying so and trains the renderer it would train without it.
 """
 
 from __future__ import annotations
@@ -72,8 +74,7 @@ NOT_PORTED = {'--merge-locals': 'queue 1, item 8',
               '--no-precompile': 'the TPU phase executor (not ported)'}
 # Accepted flags whose values other than the default raise until the
 # queue item named here is ported.
-WAITING = {'--renderer-import': 'queue 1, item 7',
-           '--resume': 'queue 1, item 7 (an alias or a URL)'}
+WAITING = {'--resume': 'queue 1, item 7 (an alias or a URL)'}
 # --resume aliases of the JAX package (utils/url_util.py:28-34)
 RESUME_ALIASES = ('ffhq256', 'ffhq512', 'ffhq1024', 'celebahq256',
                   'lsundog256')
@@ -162,7 +163,8 @@ def make_parser() -> argparse.ArgumentParser:
     add('--bypass-renderer', action='store_true', default=False)
     add('--renderer-type', choices=['tanh', 'subpixel'], default='tanh')
     add('--renderer-import', default=None, metavar='PTH',
-        help='(not ported) a reference renderer .pth.tar checkpoint')
+        help='accepted and not read, as in the JAX CLI (a reference '
+             'renderer .pth.tar checkpoint)')
     add('--global-optimize-interval', type=int, default=1)
     add('--aug-p-max', type=float, default=0.6)
     add('--dry-run', action='store_true', default=False)
@@ -190,10 +192,11 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _check_waiting(opts: EasyDict) -> None:
+def _check_unread(opts: EasyDict) -> None:
     if opts.renderer_import is not None:
-        raise NotImplementedError(f'--renderer-import: ROADMAP '
-                                  f'{WAITING["--renderer-import"]}')
+        print(f'--renderer-import {opts.renderer_import}: not read (the JAX '
+              'CLI accepts the flag and never reads it); the renderer '
+              'starts from its own initialisation')
 
 
 def metric_list(opts: EasyDict) -> list:
@@ -317,7 +320,7 @@ def parse_options(argv: Optional[Sequence[str]] = None) -> EasyDict:
     """The command line as options; flags that wait for another part of
     the port raise."""
     opts = EasyDict(vars(make_parser().parse_args(argv)))
-    _check_waiting(opts)
+    _check_unread(opts)
     metric_list(opts)
     return opts
 

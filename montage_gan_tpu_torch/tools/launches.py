@@ -150,3 +150,37 @@ def expected_projector_launches(model, steps):
             + (steps + 1) * fwd,
             'bias_act_grad': steps * grad,
             'upfirdn2d': (2 * steps + 1) * ups}
+
+
+def expected_generator_launches(mapping, synthesis):
+    """Launches of one call of a monolithic generator (a reference
+    ``.pkl``'s, ``cli/generate.py::generate_pkl``): one K1' per
+    FullyConnected (the label ``embed`` and the style affines included),
+    SynthesisLayer and ToRGBLayer forward; one K2' (the ToRGB skip
+    upsample) per synthesis block above the first."""
+    from ..models.layers import FullyConnected
+    from ..models.synthesis import SynthesisLayer, ToRGBLayer
+    return {'bias_act': _count(mapping, FullyConnected)
+            + _count(synthesis, (FullyConnected, SynthesisLayer, ToRGBLayer)),
+            'upfirdn2d': len(synthesis.block_resolutions) - 1}
+
+
+def expected_stn_pretrain_launches(d, steps):
+    """Launches of ``steps`` steps of ``cli/pretrain_stn.py`` with the
+    discriminator ``d``.  Only the SG2 ``Discriminator`` launches kernels
+    (nD bias_act layers; the renderer, the STN, the composite and the
+    simple Ds are plain PyTorch, and its down-sampling convs fold their FIR
+    into the weights, so no K2').  A step:
+
+    * the D step runs D on the reals, its input gradient with a graph (R1:
+      nD - 1 K1' grad, the output FC being linear with gain 1), D on the
+      detached fakes, and one backward of the loss to D's weights: each
+      reals node whose backward is not the identity (nD - 1), each order-1
+      node of the input gradient (nD - 1) and each fakes node (nD - 1);
+    * the STN step runs D on the rendered placements and the backward
+      through it to the STN (nD - 1)."""
+    from ..models.layers import Conv2dLayer, FullyConnected
+    n_d = _count(d, (Conv2dLayer, FullyConnected))
+    grad = 5 * (n_d - 1) if n_d else 0
+    return {'bias_act': steps * 3 * n_d, 'bias_act_grad': steps * grad,
+            'upfirdn2d': 0}

@@ -19,6 +19,13 @@ seeded random weights, on the card:
   numbered 16, where every regularizer runs, split the same way.
 * ``sample``: ``build_inference_fn`` (``noise_mode='const'``); one warm-up
   call, 3 calls under the profiler, 5 timed without it.
+* ``renderer`` and ``stn``: a stage-0 pretraining step
+  (``training/pretrain.py``) at config ``aio``'s geometry (9 layers, 256
+  px) on synthetic layers already on the card: the tanh renderer's step at
+  batch 64, and the STN GAN's D step and STN step with the SG2 D (the JAX
+  defaults) at batch 16 each; one warm-up step, 3 under the profiler, 5
+  timed without it, and for ``stn`` each of the two steps timed alone (3
+  each, synchronised).
 
 Prints the kernel time per family and the 12 longest kernels, the wall time
 with and without the profiler and the busy share (kernel time over the
@@ -135,10 +142,57 @@ def setup_train(aio: bool):
     return box, step
 
 
+def setup_stage0(path: str):
+    """(steps by name, batch) of a stage-0 pretraining step on the card:
+    ``renderer`` (its one step) or ``stn`` (the D step and the STN step)."""
+    from ..data.synthetic import synthetic_batch
+    from ..models.ensemble import MontageConfig
+    from ..models.renderer import build_renderer
+    from ..models.stn import STN
+    from ..training import pretrain
+    from ..training.train_step import AMSGrad
+    from ..utils.image_utils import generate_pseudo_fake_np
+    cfg = MontageConfig()
+    res, nl = cfg.base_resolution, cfg.num_layers
+    g = torch.Generator().manual_seed(SEED)
+    renderer = build_renderer('tanh', img_resolution=res, img_channels=4,
+                              img_layers=nl)
+    renderer.reset_parameters(g)
+    renderer.cuda()
+    rng = np.random.RandomState(SEED)
+    if path == 'renderer':
+        batch = 64
+        opt = AMSGrad(renderer.parameters(), lr=1e-3, betas=(0.9, 0.999),
+                      eps=1e-8)
+        stack = torch.from_numpy(synthetic_batch(rng, batch, nl, res)).cuda()
+        t = torch.from_numpy(rng.uniform(-1, 1, (batch * nl, 2))
+                             .astype(np.float32)).cuda()
+        return {'renderer step': lambda: pretrain.renderer_step(
+            renderer, opt, stack, t)}, batch
+    batch = 16
+    renderer.requires_grad_(False)
+    stn = STN(img_resolution=res, img_channels=4, img_layers=nl,
+              num_stages=cfg.stn_stages)
+    stn.reset_parameters(g)
+    d = pretrain.build_discriminator('sg2', res, 4)
+    d.reset_parameters(g)
+    stn.cuda()
+    d.cuda()
+    opt_d = torch.optim.Adam(d.parameters(), lr=1e-3, betas=(0.9, 0.999))
+    opt_stn = torch.optim.Adam(stn.parameters(), lr=1e-3, betas=(0.9, 0.999))
+    data = synthetic_batch(rng, 3 * batch, nl, res)
+    pseudo = torch.from_numpy(generate_pseudo_fake_np(data)).cuda()
+    real = torch.from_numpy(data[:batch]).cuda()
+    return {'D step': lambda: pretrain.stn_d_step(
+                d, opt_d, stn, renderer, real, pseudo[batch:2 * batch]),
+            'STN step': lambda: pretrain.stn_g_step(
+                stn, opt_stn, d, renderer, pseudo[2 * batch:])}, batch
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--path', choices=('aio', 'train', 'sample'),
-                    default='aio')
+    ap.add_argument('--path', choices=('aio', 'train', 'sample', 'renderer',
+                                       'stn'), default='aio')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile: no CUDA device')
@@ -157,8 +211,18 @@ def main(argv=None):
         return times
 
     phases = None
+    batch = BATCH
     training = args.path in ('aio', 'train')
-    if training:
+    stage0 = args.path in ('renderer', 'stn')
+    if stage0:
+        steps, batch = setup_stage0(args.path)
+
+        def run():
+            for fn in steps.values():
+                fn()
+        timed_ms(run, 1)
+        calls, unit = 3, 'step'
+    elif training:
         box, step = setup_train(args.path == 'aio')
         timed_ms(step, 1)                                  # step 0
         calls, unit = 3, 'step'
@@ -195,9 +259,12 @@ def main(argv=None):
         reg_phases = phase_split(step, 1)
     else:
         wall = timed_ms(run, 5)
+        if stage0 and len(steps) > 1:
+            phases = {name: statistics.median(timed_ms(fn, 3))
+                      for name, fn in steps.items()}
     total = sum(fam_ms.values())
     wall_ms = statistics.median(wall)
-    print(f'[profile] {args.path}, config aio, batch {BATCH}  card: {card}')
+    print(f'[profile] {args.path}, config aio, batch {batch}  card: {card}')
     print(f'  wall {wall_ms:.2f} ms per {unit} (median, no profiler), '
           f'{statistics.median(prof_ms):.2f} under the profiler; kernel time '
           f'{total:.2f} ms, busy share {total / wall_ms:.3f}, '
@@ -222,7 +289,10 @@ def main(argv=None):
         print(f'    {fam:20s} {fam_ms[fam]:9.3f} ms {n:7.0f} launches '
               f'(profiler {fam_n[fam]:.0f}) {nbytes / 1e9:8.3f} GB  bound '
               f'{bound:8.3f} ms  gap {gap:8.3f} ms{by}')
-    if phases:
+    if phases and stage0:
+        print('  each step alone (synchronised), median ms: ' + ', '.join(
+            f'{k} {v:.1f}' for k, v in phases.items()))
+    elif phases:
         for label, split in (('steps 9-11', phases),
                              ('step 16 (every regularizer)', reg_phases)):
             print(f'  per phase, {label}, local phases summed over the 9 '

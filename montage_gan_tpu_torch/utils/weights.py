@@ -59,13 +59,14 @@ def _as_list(tree) -> list:
 
 def mapping_state_dict(variables: Dict[str, Any]) -> 'OrderedDict':
     params = variables['params']
-    if 'embed' in params:
-        raise NotImplementedError('conditional mapping is not ported yet')
     out: 'OrderedDict' = OrderedDict()
     w_avg = variables.get('moving_stats', {}).get('w_avg')
     if w_avg is None:  # a fresh network's w_avg is zeros
         w_avg = np.zeros_like(np.asarray(params[_fc_names(params)[-1]]['bias']))
     out['w_avg'] = _t(w_avg)
+    if 'embed' in params:          # a conditional mapping's label embedding
+        out['embed.weight'] = _linear_w(params['embed']['weight'])
+        out['embed.bias'] = _t(params['embed']['bias'])
     for k in _fc_names(params):
         out[f'{k}.weight'] = _linear_w(params[k]['weight'])
         out[f'{k}.bias'] = _t(params[k]['bias'])
@@ -188,6 +189,28 @@ def renderer_state_dict(variables: Dict[str, Any],
     # the module order: block.0, then cnn.* by position
     for name in sorted(flat, key=lambda n: (n != 'block.0', n)):
         out[f'{name}.weight'], out[f'{name}.bias'] = flat[name]
+    return out
+
+
+def simple_d_state_dict(variables: Dict[str, Any]) -> 'OrderedDict':
+    """A JAX ``SimpleGlobalDiscriminator``/``V2``'s variables → the state
+    dict of the port's (``models/simple_d.py``), whose submodules carry the
+    flax names: each ``kernel`` becomes a conv or linear ``weight``."""
+    out: 'OrderedDict' = OrderedDict()
+
+    def walk(tree, prefix):
+        for k in sorted(tree):
+            v = tree[k]
+            if isinstance(v, dict):
+                walk(v, f'{prefix}{k}.')
+            elif k == 'kernel':
+                v = np.asarray(v)
+                out[f'{prefix}weight'] = (_conv_w(v) if v.ndim == 4
+                                          else _linear_w(v))
+            else:
+                out[f'{prefix}{k}'] = _t(v)
+
+    walk(variables['params'], '')
     return out
 
 

@@ -469,7 +469,6 @@ def test_train_aio_cli_needs_a_card_or_device_cpu(tiny_dataset, tmp_path):
 
 
 WAITING = {'--metrics': ['--metrics', 'fid50k_fool'],
-           '--renderer-import': ['--renderer-import', 'r.pth.tar'],
            '--resume': ['--resume', 'ffhq256']}
 
 
@@ -501,8 +500,11 @@ def test_train_aio_cli_flag_parity():
     assert not missing, missing
     assert not set(train_aio.NOT_PORTED) & ours
     assert set(train_aio.WAITING) <= ours & flags
-    # the metrics are ported: --metrics is accepted and waits no more
+    # the metrics are ported: --metrics is accepted and waits no more;
+    # --renderer-import is accepted and, as in the JAX CLI, not read
     assert set(WAITING) - {'--metrics'} == set(train_aio.WAITING)
+    assert '--renderer-import' in ours & flags
+    assert '--renderer-import' not in train_aio.WAITING
     assert '--metrics' in ours & flags
     # data parallelism is ported: both flags accepted, neither waits
     assert {'--gpus', '--coordinator'} <= ours & flags

@@ -759,6 +759,10 @@ def test_main_dispatches_the_ported_commands(capsys):
     assert set(port_main.PORTED) | set(port_main.WAITING) == \
         set(jax_cli.commands)
     assert not set(port_main.PORTED) & set(port_main.WAITING)
+    # checkpoint interop and stage 0 are ported; the single-GAN path waits
+    assert {'convert-pickle', 'export-torch', 'pretrain-renderer',
+            'pretrain-stn'} <= set(port_main.PORTED)
+    assert set(port_main.WAITING) == {'train', 'run-recipe', 'dataset-tool'}
     with open(os.path.join(os.path.dirname(__file__), '..',
                            'ROADMAP.md')) as f:
         roadmap = f.read()

@@ -34,6 +34,7 @@ from montage_gan_tpu.models.ensemble import MontageEnsemble as JaxEnsemble
 from montage_gan_tpu.utils import checkpoint as jckpt
 from montage_gan_tpu.utils import image_utils as jimg
 from montage_gan_tpu.utils import serving as jserving
+from montage_gan_tpu.utils import torch_export
 from montage_gan_tpu_torch import __main__ as port_main
 from montage_gan_tpu_torch.models.ensemble import MontageConfig
 from montage_gan_tpu_torch.utils import checkpoint as tckpt
@@ -244,8 +245,11 @@ def test_generate_renderer_composite_matches_jax(snapshot, tmp_path,
 
 
 def test_generate_refuses_pkl_and_needs_seeds(tmp_path):
+    """A ``.pkl`` now goes to the pickle reader (``utils/pkl_import.py``;
+    ``tests/test_torch_interop.py`` samples one): a missing file raises
+    there, not as a port that waits."""
     from montage_gan_tpu_torch.cli.generate import main as port_main_
-    with pytest.raises(NotImplementedError, match='item 7'):
+    with pytest.raises(FileNotFoundError, match='net.pkl'):
         port_main_(['--network', 'net.pkl', '--seeds', '0', '--outdir',
                     str(tmp_path), '--device', 'cpu'])
     with pytest.raises(SystemExit):
@@ -332,14 +336,16 @@ def test_compare_renderers_matches_jax(renderer_data, small, tmp_path,
     got = port_cmp(args + ['--device', 'cpu'])[ckpt]
     assert abs(got - ref) <= 1e-3, (got, ref)
 
-    # the same renderer from a port EMA snapshot; a .pth.tar waits
+    # the same renderer from a port EMA snapshot and from a reference
+    # .pth.tar (its 'renderer' entry, as the JAX package's exporter writes it)
     cfg, model = port_model(small[2])
     tckpt.save_ema_snapshot(str(tmp_path / 'ema.pt'), cfg, model)
-    res = port_cmp(args + ['--ckpt', str(tmp_path / 'ema.pt'), '--device',
-                           'cpu'])
-    assert res[str(tmp_path / 'ema.pt')] == res[ckpt]
-    with pytest.raises(NotImplementedError, match='item 7'):
-        port_cmp(['--data', data, '--ckpt', 'r.pth.tar', '--device', 'cpu'])
+    pth = str(tmp_path / 'r.pth.tar')
+    torch.save({'renderer': torch_export.renderer_state_dict(
+        small[2]['renderer'], 'tanh'), 'global_step': 3}, pth)
+    res = port_cmp(args + ['--ckpt', str(tmp_path / 'ema.pt'), '--ckpt', pth,
+                           '--device', 'cpu'])
+    assert res[str(tmp_path / 'ema.pt')] == res[ckpt] == res[pth]
     # random placement moves the layers, from a generator keyed by the seed
     placed = [port_cmp(['--data', data, '--ckpt', ckpt, '--batch', '2',
                         '--seed', str(s), '--device', 'cpu'])[ckpt]
