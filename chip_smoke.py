@@ -97,11 +97,12 @@ Phases, in order; each raises on failure, and the script then exits non-zero:
    launched exactly 125
    sampling calls' counts); KID, PR and IS at 512 generated images and
    ppl2_wend at 256 samples; ``cli/train_aio --metrics fid2k`` for one step
-   at batch 8, its ``metric-fid2k.jsonl`` and ``Metrics/fid2k`` checked;
-   the phase's peak memory.
+   at batch 8 at the micro ensemble's widths (the metric's contract; its
+   cost is the fid2k above), its ``metric-fid2k.jsonl`` and
+   ``Metrics/fid2k`` checked; the phase's peak memory.
 16. tools: on phase 13's EMA snapshot (kept; it holds the tanh renderer)
    and dataset, with phase 15's random-weight VGG16 in the drop-in
-   directory: ``cli/style_mixing`` 4x4; ``cli/projector`` for 50 steps on
+   directory: ``cli/style_mixing`` 4x4; ``cli/projector`` for 10 steps on
    one composite of the dataset with the VGG16-LPIPS distance (seconds a
    step, the first and last distance); one projector step on the micro
    ensemble, CPU (plain versions) against the card (kernels), same weights
@@ -129,20 +130,40 @@ Phases, in order; each raises on failure, and the script then exits non-zero:
    dataset ``cli/pretrain_renderer`` (tanh, batch 64, 20 steps: seconds a
    step, PSNR, data wait, peak memory; sigmoid and subpixel 2 steps) and
    ``cli/pretrain_stn`` (the SG2 D at 256 px, batch 16 of each of the three
-   splits: 20 steps on the pretrained renderer, 4 on the exported one;
+   splits: 5 steps on the pretrained renderer, 4 on the exported one;
    the simple Ds 2 steps); one micro step of each pretrainer, card against
    CPU.  Every run's launches of K1', K1' grad and K2' are held exactly to
    ``tools/launches.py`` (``expected_generator_launches``,
    ``expected_stn_pretrain_launches``; none for the renderer's).
+18. single: the single-GAN path in phase 13's temporary directory:
+   ``cli/dataset_tool`` of 128 synthetic 256 px RGB PNGs into a zip, and of
+   five synthetic CIFAR-10 pickles (64 images each, 10 classes) into a
+   labelled zip; ``cli/train --cfg paper256`` (StyleGAN2-ADA's 256 px
+   config) for 5 steps at batch 64 (``--kimg 0.32``; batch 32 where 64
+   does not fit, said with the peak), resumed from a seeded ``paper256``
+   ``.pkl`` (G, D, G_ema) through ``transfer_into_train_state`` (the
+   copied and skipped counts), with seconds a step over steps 2-5, peak
+   memory and data wait; ``cli/train --cfg cifar --cond true --freezed 2``
+   for 5 steps, the frozen D layers bit for bit as initialised, and
+   ``cli/generate --class 3`` of its EMA snapshot; ``cli/calc_metrics
+   --metrics fid2k`` of the ``.pkl`` on the 256 px zip with phase 15's
+   random-weight detectors, after one batch of 16 through K1'/K2' is held
+   to the plain route; one labelled micro step (Freeze-D 2), card against
+   CPU, each phase within ``TOL_TRAIN_LOSS``/``TOL_TRAIN_GRAD`` or ten
+   times a 1e-6 nudge's spread.  Every run's launches of K1'-K4' are held
+   exactly to ``tools/launches.py`` (``expected_train_launches`` with the
+   fakes grid's ``expected_generator_launches``).
 
 Each main path (6, 8, 10, 11, 13's CLI step and 6-step loops, 14's steps,
-15's fid2k, each of 16's tools and each of 17's runs) is driven with every
-launch count set to 0 just before it and read just after.  The last two lines are the card's
-name and power limit (from ``nvidia-smi``) and one JSON object, ``{"ok":
-true, "device": {...}}``; the line before them is ``{"kernels": [...]}``,
-and before it the loop's figures (``{"loop": ...}``), the metrics', the
-tools', phase 17's (``{"stage0": ...}``) and the data-parallel step's,
-and the total seconds.
+15's fid2k, each of 16's tools and each of 17's and 18's runs) is driven
+with every launch count set to 0 just before it and read just after.
+The last two lines are the card's name and power limit (from
+``nvidia-smi``) and one JSON object, ``{"ok": true, "device": {...}}``;
+the line before them is ``{"kernels": [...]}``, and before it phase 18's
+figures (``{"single": ...}``), the total seconds, each phase's seconds
+(``{"phase_seconds": ...}``), the data-parallel step's, phase 17's
+(``{"stage0": ...}``), the tools', the metrics' and the loop's figures
+(``{"loop": ...}``).
 """
 
 import contextlib
@@ -1097,6 +1118,9 @@ def cpu_draws(seed, device):
 
         def uniform(self, shape, kind):
             return super().uniform(shape, kind).to(device)
+
+        def permutation(self, n, kind):
+            return super().permutation(n, kind).to(device)
     return CpuDraws(torch.Generator().manual_seed(seed))
 
 
@@ -1965,11 +1989,14 @@ def phase_metrics(card, kernels, tmp, device='cuda'):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 4. the training CLI scoring its snapshot
+    # 4. the training CLI scoring its snapshot, at micro widths (the
+    # metric's contract, not its cost: config aio's fid2k is measured above)
     runs = os.path.join(tmp, 'metric-runs')
     t0 = time.perf_counter()
     train_aio.main(['--outdir', runs, '--data', os.path.join(tmp, 'layers'),
                     '--cfg', 'aio', '--batch', '8', '--run-once',
+                    '--channel-base', str(MICRO['channel_base']),
+                    '--channel-max', str(MICRO['channel_max']),
                     '--metrics', 'fid2k', '--device', device])
     cli_s = time.perf_counter() - t0
     run_dir = os.path.join(runs, os.listdir(runs)[0])
@@ -1984,19 +2011,20 @@ def phase_metrics(card, kernels, tmp, device='cuda'):
     out['cli'] = dict(fid2k=record['results']['fid2k'],
                       fid2k_s=record['total_time'], command_s=cli_s)
     shutil.rmtree(runs, ignore_errors=True)
-    log(f'  ok  cli/train_aio --batch 8 --run-once --metrics fid2k: '
-        f'metric-fid2k.jsonl and Metrics/fid2k {record["results"]["fid2k"]:.6g}'
+    log(f'  ok  cli/train_aio --batch 8 --run-once --metrics fid2k at '
+        f'channel_base {MICRO["channel_base"]}, channel_max '
+        f'{MICRO["channel_max"]}: metric-fid2k.jsonl and Metrics/fid2k {record["results"]["fid2k"]:.6g}'
         f' (the EMA after one step), fid2k {record["total_time"]:.1f} s of '
         f'{cli_s:.1f} s')
     out['cli_peak_gib'] = torch.cuda.max_memory_allocated() / 2**30
-    log(f'  peak memory from fid2k to the CLI\'s end (its training step at '
-        f'batch 8) {out["cli_peak_gib"]:.2f} GiB  card: {card}')
+    log(f'  peak memory from fid2k to the CLI\'s end (its micro training '
+        f'step at batch 8) {out["cli_peak_gib"]:.2f} GiB  card: {card}')
     return out
 
 
 # The tools phase: the projector's steps at config aio, the rows and columns
 # of the style-mixing grid, and the micro step's draw of w noise (t > 0).
-PROJECTOR_STEPS = 50
+PROJECTOR_STEPS = 10
 STYLE_GRID = ('0-3', '4-7')
 MICRO_STEP = (3, 10)
 
@@ -2277,7 +2305,8 @@ def phase_tools(card, kernels, tmp, device='cuda'):
 
 
 # Phase 17: interop and stage 0.
-STAGE0_STEPS = 20            # pretrain_renderer steps; pretrain_stn 0..19
+STAGE0_STEPS = 20            # pretrain_renderer steps
+STAGE0_STN_STEPS = 5         # pretrain_stn steps 0..4 on the renderer
 STAGE0_RENDERER_BATCH = 64   # the JAX CLI's defaults
 STAGE0_STN_BATCH = 16
 # config aio's largest layer as a reference Generator's kwargs
@@ -2614,7 +2643,7 @@ def phase_stage0(card, kernels, tmp, device='cuda'):
     from montage_gan_tpu_torch.data.dataset import DatasetAIO
     d_sg2 = build_discriminator('sg2', DatasetAIO(layers).resolution, 4)
     for label, disc, steps, ckpt in (
-            ('sg2', 'sg2', STAGE0_STEPS - 1, renderer_ckpt),
+            ('sg2', 'sg2', STAGE0_STN_STEPS - 1, renderer_ckpt),
             ('sg2_exported_renderer', 'sg2', 3, pth),
             ('simple', 'simple', 1, renderer_ckpt),
             ('simplev2', 'simplev2', 1, renderer_ckpt)):
@@ -2650,6 +2679,405 @@ def phase_stage0(card, kernels, tmp, device='cuda'):
     return out
 
 
+# The single-GAN phase: StyleGAN2-ADA's paper256 at 256 px and the
+# conditional cifar config at 32 px, batch 64, 5 steps each (--kimg 0.32).
+SINGLE_SAMPLES = 128
+SINGLE_RES = 256
+SINGLE_BATCH = 64
+SINGLE_KIMG = '0.32'
+CIFAR_PER_BATCH = 64                 # images in each data_batch_* pickle
+CIFAR_CLASSES = 10
+CIFAR_FREEZED = 2
+PAPER256_KW = dict(z_dim=512, w_dim=512, img_resolution=SINGLE_RES,
+                   img_channels=3, c_dim=0, mapping_kwargs=dict(num_layers=8),
+                   synthesis_kwargs=dict(channel_base=16384, channel_max=512,
+                                         num_fp16_res=4, conv_clamp=256))
+PAPER256_D_KW = dict(c_dim=0, img_resolution=SINGLE_RES, img_channels=3,
+                     channel_base=16384, channel_max=512, num_fp16_res=4,
+                     conv_clamp=256, mbstd_group_size=8)
+
+
+class _Tee:
+    """Writes to standard output and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return ''.join(self.parts)
+
+
+def single_micro_step(device='cuda'):
+    """One labelled training step (Freeze-D of 2 layers, ADA's bgc pipe at
+    p 0.6, learning rate 0 so that each phase reads the same weights) of a
+    float32 micro single-GAN ensemble on the CPU (plain versions) and on the
+    card (kernels), with the same weights, reals, labels and draws: each
+    phase's loss within ``TOL_TRAIN_LOSS`` and gradients within
+    ``TOL_TRAIN_GRAD`` of the phase's largest entry, or ten times the CPU's
+    spread when its weights move by 1e-6 where that is larger."""
+    import numpy as np
+    import torch
+    from montage_gan_tpu_torch.models.ensemble import (MontageConfig,
+                                                       MontageEnsemble)
+    from montage_gan_tpu_torch.training.augment import make_augment_config
+    from montage_gan_tpu_torch.training.train_step import (MontageTrainer,
+                                                           TrainHyper)
+    cfg = MontageConfig(
+        layer_names=('image',), layer_targets=((32, 32),),
+        base_resolution=32, img_channels=3, conv_config_index=2, z_dim=32,
+        w_dim=32, c_dim=CIFAR_CLASSES, freeze_d_layers=CIFAR_FREEZED,
+        mapping_num_layers=2, channel_base=512, channel_max=32,
+        num_fp16_res=0, conv_clamp=256, mbstd_group_size=2,
+        use_global_mapping=False, train_global=False, renderer_type='none')
+    hyper = TrainHyper(lrate=0.0, batch_size=4, train_global=False,
+                       train_renderer=False, bypass_renderer=True,
+                       augment=make_augment_config('bgc'),
+                       augment_p_init=0.6)
+    base = MontageEnsemble(cfg, with_d=True).init_weights(SEED + 9)
+    with torch.no_grad():
+        for name, p in base.named_parameters():    # zero-init terms do work
+            if name.endswith(('bias', 'noise_strength')):
+                p.add_(torch.randn(p.shape, generator=torch.Generator()
+                                   .manual_seed(len(name))) * 0.1)
+    rng = np.random.RandomState(SEED + 9)
+    crops = rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)
+    eye = np.eye(CIFAR_CLASSES, dtype=np.float32)
+    real_c, gen_c = (eye[rng.randint(0, CIFAR_CLASSES, 4)] for _ in range(2))
+
+    def run(model, dev):
+        draws = cpu_draws(SEED + 10, dev)
+        trainer = MontageTrainer(MontageEnsemble(cfg, with_d=True), hyper,
+                                 device=dev)
+        state = trainer.state_from_variables(model.state_dict())
+        grads = {}
+        trainer.phase_hook = lambda name, g: grads.__setitem__(
+            name, [None if t is None else t.detach().cpu() for t in g])
+        _, stats = trainer.train_step(state, None, [crops], draws,
+                                      real_c=real_c, gen_c=gen_c)
+        return {k: float(v) for k, v in stats.items()
+                if '/Loss/' in k and '/signs/' not in k}, grads
+
+    ref_stats, ref = run(base, 'cpu')
+    stats, got = run(base, device)
+    n_stats, nudged = run(nudged_copy(base), 'cpu')
+    out = {}
+    for phase in ref:
+        worst, at = spread(got[phase], ref[phase])
+        floor, _ = spread(nudged[phase], ref[phase])
+        limit = max(TOL_TRAIN_GRAD, 10 * floor)
+        if not worst <= limit:
+            raise AssertionError(f'single micro step {phase}: gradient {at} '
+                                 f'differs by {worst:.3g} of the phase\'s '
+                                 f'largest entry (limit {limit:.3g})')
+        out[phase] = dict(grad_err=worst, nudged_spread=floor)
+    worst_loss = 0.0
+    for k, v in ref_stats.items():
+        limit = max(TOL_TRAIN_LOSS, 10 * abs(n_stats[k] - v))
+        if not abs(stats[k] - v) <= limit:
+            raise AssertionError(f'single micro step {k}: {stats[k]} on the '
+                                 f'card, {v} on the CPU (limit {limit:.3g})')
+        worst_loss = max(worst_loss, abs(stats[k] - v))
+    out['loss_max_abs_err'] = worst_loss
+    log(f'  ok  one labelled micro step (Freeze-D {CIFAR_FREEZED}), card '
+        f'against CPU: losses within {worst_loss:.3g} (atol '
+        f'{TOL_TRAIN_LOSS}); gradients ' + ', '.join(
+            f'{ph} {v["grad_err"]:.3g} (CPU moved 1e-6: '
+            f'{v["nudged_spread"]:.3g})' for ph, v in out.items()
+            if isinstance(v, dict)) + f' of the phase\'s largest entry '
+        f'(limit {TOL_TRAIN_GRAD})')
+    return out
+
+
+def transfer_entries(nets) -> int:
+    """The entries of a ``.pkl``'s G, D and G_ema (``{'G': module, ...}``)
+    that ``pkl_import.transfer_into_train_state`` maps into a single-GAN
+    train state."""
+    from montage_gan_tpu_torch.utils.pkl_import import _jax_path
+    parts = (('G', 'mapping.', 'mapping'), ('G', 'synthesis.', 'synthesis'),
+             ('G_ema', 'mapping.', 'mapping'),
+             ('G_ema', 'synthesis.', 'synthesis'), ('D', '', 'd'))
+    return sum(_jax_path(net, k[len(prefix):]) is not None
+               for key, prefix, net in parts
+               for k in nets[key].state_dict() if k.startswith(prefix))
+
+
+def phase_single(card, kernels, tmp, device='cuda'):
+    """The single-GAN path in ``tmp/single``: ``dataset-tool`` of
+    ``SINGLE_SAMPLES`` synthetic 256 px RGB PNGs (the port's writer) into a
+    zip, and of five synthetic CIFAR-10 pickles into a labelled zip;
+    ``train --cfg paper256`` for 5 steps at batch 64 resumed from a seeded
+    ``paper256`` ``.pkl`` (G, D, G_ema) through
+    ``transfer_into_train_state``; ``train --cfg cifar --cond true
+    --freezed 2`` for 5 steps with its first layers checked bit for bit and
+    ``generate`` of its EMA snapshot; ``calc-metrics --metrics fid2k`` of the
+    ``.pkl`` on the 256 px zip (phase 15's random-weight detectors) after
+    one batch of 16 through K1'/K2' is held to the plain route; one micro
+    labelled step, card against CPU.  Every run's launches of K1'-K4' are
+    held exactly to ``tools/launches.py``."""
+    import pickle
+    import numpy as np
+    import torch
+    from montage_gan_tpu_torch.cli import (calc_metrics, dataset_tool,
+                                           generate, train)
+    from montage_gan_tpu_torch.models.discriminator import Discriminator
+    from montage_gan_tpu_torch.models.ensemble import MontageEnsemble
+    from montage_gan_tpu_torch.tools.launches import (
+        expected_generator_launches, expected_train_launches)
+    from montage_gan_tpu_torch.tools.seeded import (seeded_generator,
+                                                    use_detectors,
+                                                    write_persistence_pkl,
+                                                    write_random_detectors)
+    from montage_gan_tpu_torch.utils.config import EasyDict
+    from montage_gan_tpu_torch.utils.pkl_import import generator_from_pkl
+    from montage_gan_tpu_torch.utils.png import read_png_rgba, write_png
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, 'single')
+    os.makedirs(work)
+    out = {'launches': {}}
+
+    def counted(label, fn, expect):
+        for k in kernels.values():
+            k.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got = {name: k.launches for name, k in kernels.items()}
+        want = {name: expect.get(name, 0) for name in kernels}
+        if got != want:
+            raise AssertionError(f'{label}: launches {got}, expected {want}')
+        out['launches'][label] = got
+        return result, sec
+
+    # 1. the data: dataset-tool of 256 px PNGs, and of CIFAR-10 pickles
+    src = os.path.join(work, 'images')
+    os.makedirs(src)
+    rng = np.random.RandomState(SEED)
+    t0 = time.perf_counter()
+    yy, xx = np.mgrid[0:SINGLE_RES, 0:SINGLE_RES] / SINGLE_RES
+    for i in range(SINGLE_SAMPLES):
+        f = rng.uniform(1, 6, 3)
+        smooth = 0.5 + 0.5 * np.sin(2 * np.pi * (f[:, None, None] * xx
+                                                 + f[::-1, None, None] * yy))
+        img = smooth.transpose(1, 2, 0) * 200 + rng.uniform(0, 55, (
+            SINGLE_RES, SINGLE_RES, 3))
+        write_png(os.path.join(src, f'{i:04d}.png'), img.astype(np.uint8))
+    write_s = time.perf_counter() - t0
+    zip256 = os.path.join(work, 'images256.zip')
+    t0 = time.perf_counter()
+    n = dataset_tool.main(['--source', src, '--dest', zip256])
+    tool_s = time.perf_counter() - t0
+    cifar = os.path.join(work, 'cifar')
+    os.makedirs(cifar)
+    for b in range(1, 6):
+        with open(os.path.join(cifar, f'data_batch_{b}'), 'wb') as f:
+            pickle.dump({'data': rng.randint(0, 256, (CIFAR_PER_BATCH, 3072))
+                         .astype(np.uint8), 'labels': [
+                             int(v) for v in rng.randint(
+                                 0, CIFAR_CLASSES, CIFAR_PER_BATCH)]}, f)
+    cifar_zip = os.path.join(work, 'cifar10.zip')
+    t0 = time.perf_counter()
+    n_cifar = dataset_tool.main(['--source', cifar, '--source-type',
+                                 'cifar10', '--dest', cifar_zip])
+    cifar_s = time.perf_counter() - t0
+    if (n, n_cifar) != (SINGLE_SAMPLES, 5 * CIFAR_PER_BATCH):
+        raise AssertionError(f'dataset-tool wrote {n} and {n_cifar} images')
+    out['data'] = dict(write_s=write_s, dataset_tool_s=tool_s,
+                       dataset_tool_cifar10_s=cifar_s,
+                       zip_bytes=os.path.getsize(zip256))
+    log(f'[single] {SINGLE_SAMPLES} RGB PNGs {SINGLE_RES} px written in '
+        f'{write_s:.1f} s; dataset-tool to a zip ({os.path.getsize(zip256)} '
+        f'bytes) in {tool_s:.1f} s; dataset-tool --source-type cifar10 of '
+        f'{n_cifar} labelled images in {cifar_s:.1f} s')
+
+    # 2. a seeded paper256 .pkl: G, D, G_ema
+    pkl = os.path.join(work, 'paper256.pkl')
+    t0 = time.perf_counter()
+    d = Discriminator(**{k: v for k, v in PAPER256_D_KW.items()
+                         if k != 'c_dim'})
+    g = torch.Generator().manual_seed(SEED + 11)
+    with torch.no_grad():
+        d.reset_parameters(g)
+        for name, t in d.named_parameters():
+            if name.endswith('bias'):
+                t.add_(torch.randn(t.shape, generator=g) * 0.1)
+    nets = {'G': seeded_generator(PAPER256_KW, SEED), 'D': d,
+            'G_ema': seeded_generator(PAPER256_KW, SEED + 1)}
+    write_persistence_pkl(pkl, nets, {'G': PAPER256_KW, 'D': PAPER256_D_KW,
+                                      'G_ema': PAPER256_KW})
+    # equal resolution and widths: every entry the transfer maps is copied
+    expect_copied = transfer_entries(nets)
+    del d, nets
+    log(f'  wrote {pkl}: {os.path.getsize(pkl)} bytes in '
+        f'{time.perf_counter() - t0:.1f} s')
+
+    # 3. train paper256 from the .pkl, and train cifar --cond --freezed
+    def train_run(label, argv, batch):
+        argv = [*argv, '--batch', str(batch)]
+        opts = EasyDict(vars(train.make_parser().parse_args(argv)))
+        run = train.setup(opts, 1)
+        marks = []
+
+        def hook(it, state, stats):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        loop, saved = train.train_loop, sys.stdout
+        train.train_loop = lambda *a, **k: loop(*a, step_hook=hook, **k)
+        tee = sys.stdout = _Tee(saved)
+        try:
+            state = None
+
+            def fn():
+                nonlocal state
+                state = train.main(argv)
+            model = MontageEnsemble(run.cfg, with_d=True)
+            steps = int(round(float(opts.kimg) * 1000 / batch))
+            expect = expected_train_launches(model, run.hyper, steps)
+            grid = expected_generator_launches(model.mapping,
+                                               model.local_g[0])
+            for k, v in grid.items():
+                expect[k] += v                 # the fakes grid of the EMA
+            _, sec = counted(label, fn, expect)
+        finally:
+            train.train_loop, sys.stdout = loop, saved
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        run_dir = os.path.join(opts.outdir, sorted(os.listdir(
+            opts.outdir))[-1])
+        records = read_stats(run_dir)
+        bad = [k for r in records for k, v in r.items()
+               if isinstance(v, dict) and not math.isfinite(v['mean'])]
+        need = {'log.txt', 'stats.jsonl', 'fakes000000.png',
+                'network-snapshot-000000.pt', 'ema-snapshot-000000.pt'}
+        if bad or need - set(os.listdir(run_dir)) or state.step != steps:
+            raise AssertionError(f'{label}: {run_dir}, non-finite {bad}, '
+                                 f'step {state.step}')
+        fig = dict(batch=batch, steps=steps, seconds=sec,
+                   s_per_step=float(np.mean(np.diff(marks))),  # steps 2-5
+                   data_wait_s=records[-1]['Timing/data_fetch']['mean'],
+                   peak_gib=peak, launches=out['launches'][label])
+        return state, run_dir, fig, tee.text()
+
+    base = ['--data', zip256, '--cfg', 'paper256', '--kimg', SINGLE_KIMG,
+            '--resume', pkl, '--device', device]
+    try:
+        state, run_dir, fig, text = train_run(
+            'train_paper256', ['--outdir', os.path.join(work, 'runs256'),
+                               *base], SINGLE_BATCH)
+    except torch.OutOfMemoryError:
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f'  train --cfg paper256 at batch {SINGLE_BATCH} does not fit: '
+            f'peak {peak:.2f} GiB; batch {SINGLE_BATCH // 2} instead')
+        out['paper256_batch64_oom_peak_gib'] = peak
+        gc.collect()
+        torch.cuda.empty_cache()
+        state, run_dir, fig, text = train_run(
+            'train_paper256', ['--outdir', os.path.join(work, 'runs256b'),
+                               *base], SINGLE_BATCH // 2)
+    line = [ln for ln in text.splitlines()
+            if ln.startswith('transfer_into_train_state')]
+    m = re.search(r'copied (\d+) tensors, skipped (\d+)', ' '.join(line))
+    if not m or (int(m.group(1)), int(m.group(2))) != (expect_copied, 0):
+        raise AssertionError(f'train --resume {pkl}: {line}, expected '
+                             f'copied {expect_copied} tensors, skipped 0')
+    fig.update(copied=int(m.group(1)), skipped=int(m.group(2)))
+    out['paper256'] = fig
+    log(f'  ok  train --cfg paper256 --resume .pkl ({line[0]}): '
+        f'{fig["steps"]} steps at batch {fig["batch"]}, '
+        f'{fig["s_per_step"]:.3f} s a step over steps 2-{fig["steps"]}, '
+        f'data wait {fig["data_wait_s"]:.4f} s a step, peak '
+        f'{fig["peak_gib"]:.2f} GiB; launches {fig["launches"]} exactly '
+        f'expected_train_launches + the fakes grid  card: {card}')
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cargv = ['--outdir', os.path.join(work, 'runs-cifar'), '--data',
+             cifar_zip, '--cfg', 'cifar', '--cond', 'true', '--freezed',
+             str(CIFAR_FREEZED), '--kimg', SINGLE_KIMG, '--device', device]
+    state, run_dir, fig, _ = train_run('train_cifar_cond_freezed', cargv,
+                                       SINGLE_BATCH)
+    init = MontageEnsemble(state.model.cfg, with_d=True).init_weights(SEED)
+    frozen = moved = 0
+    live = state.model.local_d[0].state_dict()
+    for k, v in init.local_d[0].state_dict().items():
+        if k.endswith('resample_filter'):
+            continue
+        same = torch.equal(live[k].cpu(), v)
+        layer = k.rsplit('.', 1)[0]
+        if layer in ('b32.fromrgb', 'b32.conv0'):
+            if not same:
+                raise AssertionError(f'Freeze-D: {k} moved')
+            frozen += 1
+        moved += int(not same)
+    if frozen != 2 * CIFAR_FREEZED or moved == 0:
+        raise AssertionError(f'Freeze-D: {frozen} frozen tensors, {moved} '
+                             'moved')
+    fig.update(frozen_tensors_bit_identical=frozen, d_tensors_moved=moved)
+    out['cifar'] = fig
+    log(f'  ok  train --cfg cifar --cond true --freezed {CIFAR_FREEZED}: '
+        f'{fig["steps"]} steps at batch {fig["batch"]}, '
+        f'{fig["s_per_step"]:.3f} s a step over steps 2-{fig["steps"]}, '
+        f'peak {fig["peak_gib"]:.2f} GiB; the first {CIFAR_FREEZED} D layers '
+        f'({frozen} tensors) bit for bit as initialised, {moved} D tensors '
+        f'moved; launches {fig["launches"]} exactly  card: {card}')
+    snap = os.path.join(run_dir, 'ema-snapshot-000000.pt')
+    per = expected_generator_launches(state.ema.mapping, state.ema.local_g[0])
+    gen_dir = os.path.join(work, 'generate-cifar')
+    _, sec = counted('generate_cifar', lambda: generate.main([
+        '--network', snap, '--seeds', '0-7', '--class', '3', '--outdir',
+        gen_dir, '--device', device]), {k: 8 * v for k, v in per.items()})
+    img = read_png_rgba(os.path.join(gen_dir, 'seed0000.png'))
+    out['generate_cifar_s'] = sec
+    log(f'  ok  cli/generate --class 3 of its EMA snapshot: 8 RGB PNGs '
+        f'{img.shape[:2]} in {sec:.2f} s')
+    del state, init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. calc-metrics fid2k of the .pkl on the 256 px zip
+    if not os.path.exists(os.path.join(tmp, 'weights', 'inception.npz')):
+        write_random_detectors(os.path.join(tmp, 'weights'), SEED)
+    use_detectors(os.path.join(tmp, 'weights'))
+    mapping, synthesis, kw = generator_from_pkl(pkl)
+    mapping, synthesis = mapping.to(device), synthesis.to(device)
+    z = torch.from_numpy(seed_z(list(range(METRIC_BATCH)),
+                                kw['z_dim'])).to(device)
+    out['pkl_batch'] = check_pkl_batch(mapping, synthesis, kw, z, kernels,
+                                       device)
+    per = expected_generator_launches(mapping, synthesis)
+    del mapping, synthesis
+    batches = math.ceil(2000 / METRIC_BATCH)
+    results, sec = counted('calc_metrics_pkl_fid2k', lambda: calc_metrics.main(
+        ['--network', pkl, '--data', zip256, '--metrics', 'fid2k',
+         '--batch', str(METRIC_BATCH), '--cache-dir',
+         os.path.join(work, 'metric-cache'), '--device', device]),
+        {k: batches * v for k, v in per.items()})
+    fid = results[0].results['fid2k']
+    if not (math.isfinite(fid) and fid >= 0):
+        raise AssertionError(f'calc-metrics fid2k of the .pkl: {fid}')
+    out['calc_metrics_pkl'] = dict(fid2k=fid, seconds=sec)
+    log(f'  ok  calc-metrics --metrics fid2k of the .pkl on the zip: '
+        f'{fid:.6g} in {sec:.1f} s; launches exactly {batches} sampling '
+        f'calls\' {per}  card: {card}')
+
+    # 5. one labelled micro step, card against CPU
+    out['micro_step'] = single_micro_step(device)
+    out['phase_s'] = time.perf_counter() - t_phase
+    log(f'[single] {out["phase_s"]:.1f} s')
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, 'montage_gan_tpu_torch', 'csrc')):
         sys.exit('chip_smoke.py: montage_gan_tpu_torch/ is not beside this '
@@ -2665,6 +3093,14 @@ def main():
 
     set_fp32_precision()
     card = card_line()
+    seconds = {}
+
+    def timed(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        log(f'[seconds] {name} {seconds[name]}')
+        return result
     log(f'[device] {torch.cuda.get_device_name(0)}, '
         f'{torch.cuda.device_count()} visible; torch {torch.__version__}, '
         f'CUDA {torch.version.cuda}; card: {card}')
@@ -2685,46 +3121,56 @@ def main():
                'warp_transpose': affine_warp.transpose_kernel}
     # (max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms) at the
     # main path's shape
-    k1 = phase_bias_act('cuda', card)
+    seconds['1-2 device, build'] = round(time.perf_counter() - START, 1)
+    k1 = timed('3 kernels: bias_act', phase_bias_act, 'cuda', card)
     x = torch.empty(8, 256, 256, 64, dtype=torch.bfloat16)
     checks = {'bias_act': (*k1, *bound(2 * nbytes(x), 5 * x.numel()), None)}
-    k2, k2_backward = phase_upfirdn2d('cuda', card)
+    k2, k2_backward = timed('3 kernels: upfirdn2d', phase_upfirdn2d, 'cuda',
+                            card)
     x = torch.empty(8, 128, 128, 4)
     checks['upfirdn2d'] = (*k2, *bound(5 * nbytes(x), 8 * 4 * x.numel()),
                            library_upsample_ms('cuda'))
-    warp = phase_warp('cuda', card)
+    warp = timed('4 warp', phase_warp, 'cuda', card)
     warp_extra = {k: warp.pop(k) for k in ('two_calls', 'direct_share',
                                            'host_us')}
     checks.update(warp)
-    grads = phase_grads('cuda', card)
+    grads = timed('5 grads', phase_grads, 'cuda', card)
     checks['bias_act_grad'] = grads['bias_act_grad']
 
     slice_kernels = {k: kernels[k] for k in ('bias_act', 'upfirdn2d')}
     tool_kernels = ('bias_act', 'bias_act_grad', 'upfirdn2d')
-    model, z = phase_slice(card, slice_kernels, MontageConfig())
-    composite_check, composite_launches, composite_extra = phase_composite(
-        card, model, z)
+    train_kernels = ('bias_act', 'bias_act_grad', 'upfirdn2d',
+                     'warp_forward', 'warp_transpose')
+    model, z = timed('6 slice', phase_slice, card, slice_kernels,
+                     MontageConfig())
+    composite_check, composite_launches, composite_extra = timed(
+        '10 composite', phase_composite, card, model, z)
     checks.update(composite_check)
     del model
-    phase_cross_device()
-    phase_train(card, kernels, MontageConfig(train_global=False))
-    phase_train_cross_device()
-    launches, variants = phase_aio_train(card, kernels, MontageConfig())
+    timed('7 cross-device', phase_cross_device)
+    timed('8 train', phase_train, card, kernels,
+          MontageConfig(train_global=False))
+    timed('9 train cross-device', phase_train_cross_device)
+    launches, variants = timed('11 aio train', phase_aio_train, card,
+                               kernels, MontageConfig())
     launches['composite'] = composite_launches
-    phase_aio_cross_device()
+    timed('12 aio cross-device', phase_aio_cross_device)
     gc.collect()
     torch.cuda.empty_cache()
-    ddp = phase_ddp(card)
+    ddp = timed('14 ddp', phase_ddp, card)
     gc.collect()
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix='mgt-loop-')
     try:
-        loop = phase_loop(card, kernels, tmp)
-        metrics = phase_metrics(card, {k: kernels[k] for k in slice_kernels},
-                                tmp)
-        tools = phase_tools(card, {k: kernels[k] for k in tool_kernels}, tmp)
-        stage0 = phase_stage0(card, {k: kernels[k] for k in tool_kernels},
-                              tmp)
+        loop = timed('13 loop', phase_loop, card, kernels, tmp)
+        metrics = timed('15 metrics', phase_metrics, card,
+                        {k: kernels[k] for k in slice_kernels}, tmp)
+        tools = timed('16 tools', phase_tools, card,
+                      {k: kernels[k] for k in tool_kernels}, tmp)
+        stage0 = timed('17 stage0', phase_stage0, card,
+                       {k: kernels[k] for k in tool_kernels}, tmp)
+        single = timed('18 single', phase_single, card,
+                       {k: kernels[k] for k in train_kernels}, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2766,6 +3212,11 @@ def main():
             # tools/launches.py (the renderer's pretraining launches none)
             rows[-1]['launches_stage0'] = {
                 label: got[name] for label, got in stage0['launches'].items()}
+        if name in train_kernels:
+            # the single-GAN phase's runs, each checked against
+            # tools/launches.py (train: 5 steps and the fakes grid)
+            rows[-1]['launches_single'] = {
+                label: got[name] for label, got in single['launches'].items()}
         if row_loop is not None:
             # the training CLI's one accumulated step at batch 32 (and its
             # EMA grid), checked against expected_train_launches
@@ -2799,7 +3250,10 @@ def main():
     log(json.dumps({'ddp': [{k: v for k, v in r.items()
                              if k not in ('expected', 'launches')}
                             for r in ddp], 'card': card}))
+    log(json.dumps({'phase_seconds': seconds, 'card': card}))
     log(f'[total] {time.perf_counter() - START:.1f} s')
+    log(json.dumps({'single': {k: v for k, v in single.items()
+                               if k != 'launches'}, 'card': card}))
     log(json.dumps({'kernels': rows}))
     log(card_line())
     log(json.dumps({'ok': True, 'device': {

@@ -1,9 +1,9 @@
 """One entry point: ``python -m montage_gan_tpu_torch <command> [args]``.
 
 The subcommands of ``montage_gan_tpu/__main__.py:34-46`` under the same
-names.  Those ported so far dispatch to their CLI (each also runs as
-``python -m montage_gan_tpu_torch.cli.<name>``); the others raise, naming
-the ROADMAP queue item they wait for.
+names, each dispatched to the port's CLI (each also runs as
+``python -m montage_gan_tpu_torch.cli.<name>``).  ``WAITING`` would list a
+command that waits for a ROADMAP queue item; none does.
 """
 
 from __future__ import annotations
@@ -20,18 +20,16 @@ PORTED = {'train-aio': 'train_aio', 'generate': 'generate',
           'compare-renderers': 'compare_renderers',
           'convert-pickle': 'convert_pickle', 'export-torch': 'export_torch',
           'pretrain-renderer': 'pretrain_renderer',
-          'pretrain-stn': 'pretrain_stn'}
+          'pretrain-stn': 'pretrain_stn', 'train': 'train',
+          'run-recipe': 'run_recipe', 'dataset-tool': 'dataset_tool'}
 # the JAX package's other commands → the ROADMAP queue item they wait for
-# (item 7's single-GAN path)
-WAITING = {'train': 'queue 1, item 7', 'run-recipe': 'queue 1, item 7',
-           'dataset-tool': 'queue 1, item 7'}
+WAITING: dict = {}
 
 def main(argv: Optional[Sequence[str]] = None):
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ('-h', '--help'):
         print(__doc__)
-        print('commands: ' + ', '.join(PORTED) + '\nnot ported yet: '
-              + ', '.join(WAITING))
+        print('commands: ' + ', '.join(PORTED))
         return None
     command, rest = argv[0], argv[1:]
     if command in WAITING:

@@ -9,9 +9,15 @@ calc_metrics.py:29-191), with ``argparse`` in place of click and a
 
 ``--network`` takes the port's EMA snapshot (``ema-snapshot-*.pt``, or any
 ``utils.checkpoint.save_checkpoint`` file) or a JAX EMA snapshot
-(``.msgpack`` with its ``.json``), through ``utils/checkpoint.load_network``;
-a reference ``.pkl`` raises (ROADMAP queue 1, item 7, the single-GAN
-path; ``convert-pickle`` makes a snapshot of it).  Each result is
+(``.msgpack`` with its ``.json``), through ``utils/checkpoint.load_network``,
+scored on a layer dataset (``DatasetAIO``); or a reference SG2-ADA ``.pkl``
+(``utils/pkl_import.py::generator_from_pkl``: its ``G_ema``, the image in
+[0, 1] with constant noise), scored on a flat dataset
+(``ImageFolderDataset``), as the JAX CLI's lines 57-77 do.  A single-GAN
+snapshot (``MontageConfig.single_gan``: ``train``'s EMA snapshots,
+``convert-pickle``'s) is scored as the ``.pkl`` is, its single G on a flat
+dataset; one of several layers without the global path raises.  Each
+result is
 printed and appended to ``metric-<name>.jsonl`` beside the snapshot.
 ``--gpus N`` starts N ranks on this host, one per card, through
 ``parallel/distributed.launch`` (the route of ``train_aio --gpus``): they
@@ -64,22 +70,34 @@ def calc(opts) -> list:
     from ..data.dataset import DatasetAIO
     from ..metrics import metric_main
     from ..metrics.features import build_extractor, metric_device
-    from ..metrics.metric_utils import ensemble_fns
+    from ..metrics.metric_utils import generator_fns, snapshot_fns
     from ..utils.checkpoint import load_network
 
     dev = metric_device(opts.device)
     if dev.type == 'cuda' and dev.index is None:
         dev = torch.device('cuda', torch.cuda.current_device())
-    cfg, model = load_network(opts.network_path, device=dev)
-    dataset = DatasetAIO(opts.data, xflip=opts.mirror,
-                         conv_config_index=cfg.conv_config_index)
-    sample_fn, map_fn, synth_fn = ensemble_fns(model)
+    if opts.network_path.endswith('.pkl'):
+        from ..utils.pkl_import import generator_from_pkl
+        mapping, synthesis, kw = generator_from_pkl(opts.network_path)
+        z_dim, montage = kw['z_dim'], False
+        fns = generator_fns(mapping.to(dev), synthesis.to(dev))
+    else:
+        cfg, model = load_network(opts.network_path, device=dev)
+        z_dim, montage = cfg.z_dim, not cfg.single_gan
+        fns = snapshot_fns(model)
+    if montage:
+        dataset = DatasetAIO(opts.data, xflip=opts.mirror,
+                             conv_config_index=cfg.conv_config_index)
+    else:
+        from ..data.dataset import ImageFolderDataset
+        dataset = ImageFolderDataset(opts.data, xflip=opts.mirror)
+    sample_fn, map_fn, synth_fn = fns
     extractor = build_extractor(opts.extractor, device=dev)
     run_dir = os.path.dirname(opts.network_path) or '.'
     results = []
     for m in opts.metric_list:
         result = metric_main.calc_metric(
-            m, dataset=dataset, sample_fn=sample_fn, z_dim=cfg.z_dim,
+            m, dataset=dataset, sample_fn=sample_fn, z_dim=z_dim,
             map_fn=map_fn, synth_fn=synth_fn, ppl_samples=opts.ppl_samples,
             extractor=extractor, cache_dir=opts.cache_dir,
             batch_size=opts.batch, seed=opts.seed, device=dev)
@@ -104,12 +122,6 @@ def main(argv: Optional[Sequence[str]] = None):
     started the ranks: rank 0 wrote them)."""
     from ..metrics import metric_main
     opts = make_parser().parse_args(argv)
-    if opts.network_path.endswith('.pkl'):
-        raise NotImplementedError(
-            f'--network {opts.network_path}: scoring a reference pickle '
-            'waits for ROADMAP queue 1, item 7 (the single-GAN path: its '
-            'ImageFolderDataset); convert it with convert-pickle, or pass a '
-            'port snapshot (.pt) or a JAX EMA snapshot (.msgpack)')
     opts.metric_list = metric_main.check_metrics(opts.metrics.split(','))
     if opts.num_devices < 1:
         raise ValueError(f'--gpus {opts.num_devices}')

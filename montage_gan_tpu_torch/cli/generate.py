@@ -9,7 +9,9 @@ a port checkpoint (``utils.checkpoint.save_checkpoint``), a JAX EMA
 snapshot (``.msgpack`` with its ``.json``) or a reference SG2-ADA ``.pkl``
 (read by the allowlist unpickler of ``utils/pkl_import.py``): its one
 generator writes ``seed{seed:04d}.png`` (RGBA or RGB), with ``--class`` the
-label of a conditional network.
+label of a conditional network.  A 1-layer snapshot without the global path
+whose G is conditional or whose image is not RGBA (``cli/train.py``'s) is
+sampled the same way, its single G's image.
 
     python -m montage_gan_tpu_torch.cli.generate --network CKPT \\
         --seeds 0-7 --outdir out [--device cuda]
@@ -128,13 +130,22 @@ def generate_pkl(args, device: torch.device, error) -> None:
             write_image(f'{args.outdir}/proj{idx:02d}.png',
                         (img[0] * 0.5 + 0.5).cpu().numpy())
         return
-    label = pkl_label(int(kw.get('c_dim', 0) or 0), args.class_idx, error)
+    sample_seeds(args, mapping, synthesis, int(kw.get('c_dim', 0) or 0),
+                 kw['z_dim'], device, error)
+
+
+def sample_seeds(args, mapping, synthesis, c_dim: int, z_dim: int,
+                 device: torch.device, error) -> None:
+    """One generator's image per seed: z from ``RandomState(seed)`` →
+    mapping (with the ``--class`` label, ``--trunc``) → synthesis
+    (``--noise-mode``) → ``seed{seed:04d}.png`` (RGBA or RGB)."""
+    label = pkl_label(c_dim, args.class_idx, error)
     if label is not None:
         label = label.to(device)
     generator = torch.Generator(device=device)
     for seed in args.seeds:
         print(f'Generating image for seed {seed} ...')
-        z = torch.from_numpy(np.random.RandomState(seed).randn(1, kw['z_dim'])
+        z = torch.from_numpy(np.random.RandomState(seed).randn(1, z_dim)
                              .astype(np.float32)).to(device)
         generator.manual_seed(seed)
         with torch.inference_mode():
@@ -174,6 +185,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         return generate_pkl(args, device, p.error)
 
     cfg, model = load_network(args.network, device=device)
+    if (cfg.single_gan and (cfg.c_dim > 0 or cfg.img_channels != 4)
+            and args.projected_w is None):
+        # a single G that the montage composition cannot take (labels, or
+        # no alpha: cli/train.py's snapshots), sampled as a .pkl's G is
+        return sample_seeds(args, model.mapping, model.local_g[0],
+                            cfg.c_dim, cfg.z_dim, device, p.error)
     if args.class_idx is not None:
         print('warn: --class=lbl ignored when running on an unconditional '
               'network')

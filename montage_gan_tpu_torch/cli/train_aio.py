@@ -21,10 +21,12 @@ the global microbatch of a round, as in the JAX CLI); the kernels are built
 once before.  ``--coordinator HOST:PORT`` makes this process one rank of a
 run whose ranks are started separately, on one host or several: its rank,
 the world size and its card come from ``RANK``, ``WORLD_SIZE`` and
-``LOCAL_RANK`` (torchrun's names).  Only rank 0 writes files.  Flags that
-wait for another part of the port raise with the ROADMAP queue item they
-wait for (``WAITING``); the TPU's dispatch machinery has no counterpart
-(``NOT_PORTED``).  ``--renderer-import`` is accepted and not read, as in
+``LOCAL_RANK`` (torchrun's names).  Only rank 0 writes files.  ``--resume``
+takes a port train-state snapshot, a predefined alias or a URL
+(``utils/url_util.py``: fetched through its md5-keyed cache, where one
+that is already cached loads without the network).  The TPU's dispatch
+machinery has no counterpart (``NOT_PORTED``); no flag waits for another
+part of the port (``WAITING`` is empty).  ``--renderer-import`` is accepted and not read, as in
 the JAX CLI, which never reads ``opts.renderer_import``: the run prints one
 line saying so and trains the renderer it would train without it.
 """
@@ -47,6 +49,7 @@ from ..training.loop_aio import (config_from_dataset, training_device,
 from ..training.train_step import TrainHyper
 from ..utils.config import EasyDict
 from ..utils.logging_utils import Logger
+from ..utils.url_util import resolve_resume
 
 # cfg presets (reference: train_aio.py:164-197).  'auto' is resolved at
 # runtime from resolution/device count.
@@ -73,11 +76,8 @@ NOT_PORTED = {'--merge-locals': 'queue 1, item 8',
               '--precompile': 'the TPU phase executor (not ported)',
               '--no-precompile': 'the TPU phase executor (not ported)'}
 # Accepted flags whose values other than the default raise until the
-# queue item named here is ported.
-WAITING = {'--resume': 'queue 1, item 7 (an alias or a URL)'}
-# --resume aliases of the JAX package (utils/url_util.py:28-34)
-RESUME_ALIASES = ('ffhq256', 'ffhq512', 'ffhq1024', 'celebahq256',
-                  'lsundog256')
+# queue item named here is ported: none.
+WAITING: dict = {}
 
 
 def resolve_auto_spec(spec: EasyDict, res: int, num_devices: int) -> EasyDict:
@@ -99,19 +99,6 @@ def next_run_dir(outdir: str, desc: str) -> str:
     ids = [int(m.group(1)) for d in os.listdir(outdir)
            if (m := re.match(r'^(\d+)-', d))]
     return os.path.join(outdir, f'{(max(ids) + 1 if ids else 0):05d}-{desc}')
-
-
-def resolve_resume(resume: Optional[str]):
-    """(local path or None, run-desc suffix) of a ``--resume`` value
-    (the JAX package's ``utils/url_util.py::resolve_resume`` for a local
-    path; aliases and URLs raise)."""
-    if resume is None or resume == 'noresume':
-        return None, ('-noresume' if resume == 'noresume' else '')
-    if resume in RESUME_ALIASES or '://' in resume:
-        raise NotImplementedError(
-            f'--resume {resume}: aliases and URLs wait for ROADMAP '
-            f'{WAITING["--resume"]}; pass a port snapshot (.pt)')
-    return resume, '-resumecustom'
 
 
 def _bool(s: str) -> bool:
@@ -151,8 +138,9 @@ def make_parser() -> argparse.ArgumentParser:
     add('--p', type=float, default=None)
     add('--target', type=float, default=None)
     add('--augpipe', choices=list(AUGPIPE_SPECS), default='bgcfnc')
-    add('--resume', default=None, metavar='PATH',
-        help='a train-state snapshot of the port (network-snapshot-*.pt)')
+    add('--resume', default=None, metavar='PATH|ALIAS|URL',
+        help='a train-state snapshot of the port (network-snapshot-*.pt), '
+             'an alias of utils/url_util.RESUME_SPECS or a URL')
     add('--fp32', type=_bool, default=False)
     add('--conv-config-index', type=int, default=3,
         help='Pyramid start exponent (reference training_loop_aio.py:58)')
@@ -272,9 +260,11 @@ def setup_training_loop_kwargs(opts: EasyDict,
     ada_target = (opts.target or 0.6) if opts.aug == 'ada' else None
     augment_p = opts.p or 0.0
 
-    # --resume: None | 'noresume' | a port snapshot (reference:
-    # train_aio.py:341-355 — resume re-tunes ADA and disables EMA rampup)
-    resume_path, resume_desc = resolve_resume(opts.resume)
+    # --resume: None | 'noresume' | alias | path | URL (reference:
+    # train_aio.py:341-355 — resume re-tunes ADA and disables EMA rampup);
+    # an alias or URL is fetched in main, unless it is a dry run
+    resume_path, resume_desc = resolve_resume(opts.resume, fetch=False,
+                                              verbose=False)
     is_resume = resume_path is not None
 
     hyper = TrainHyper(
@@ -361,7 +351,10 @@ def main(argv: Optional[Sequence[str]] = None):
     they write the snapshots)."""
     opts = parse_options(argv)
     world = num_ranks(opts)
+    # fetch an alias or URL before anything is written (not in a dry run)
+    resume_path = None if opts.dry_run else resolve_resume(opts.resume)[0]
     kwargs = setup_training_loop_kwargs(opts, world)
+    kwargs.resume_path = resume_path
     print(json.dumps({'run_dir': kwargs.run_dir,
                       'batch': kwargs.hyper.batch_size, 'devices': world,
                       'resolution': kwargs.dataset.resolution,

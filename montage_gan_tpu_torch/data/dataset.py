@@ -5,8 +5,12 @@ dataset.py:35-190``; the reference's custom/dataset_aio.py:88-254).  Layout:
 one directory per sample holding L layer PNGs, sorted by name.  Per-layer
 statistics (nonzero-alpha bounding boxes → target resolutions) are computed
 once and cached as ``montage_stats.json`` next to the data, the same file and
-JSON as the JAX package's.  Layers are read by ``utils/png.py`` (8-bit RGBA
-or RGB PNGs; PIL is not needed).
+JSON as the JAX package's.  Layers are read by ``utils/png.py`` (8-bit RGBA,
+RGB or grey PNGs; PIL is not needed).
+
+``ImageFolderDataset`` is the single-GAN ``train``'s flat dataset (port of
+``montage_gan_tpu/data/dataset.py:193-289``): PNGs in a folder or a
+``.zip``, with labels from ``dataset.json``.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import numpy as np
 
 from ..utils.calc_res import (calc_init_res, calc_res, calc_res_combination,
                               find_min_res_combination)
-from ..utils.png import read_png_rgba
+from ..utils.png import decode_png, read_png_rgba
 
 STAT_CACHE_NAME = "montage_stats.json"
 
@@ -198,3 +202,149 @@ class DatasetAIO:
     def __getitem__(self, index: int) -> np.ndarray:
         """[L, H, W, 4] float32 in [0, 1]; xflip flips W."""
         return self.load_u8(index).astype(np.float32) / np.float32(255.0)
+
+
+class ImageFolderDataset:
+    """A folder (searched recursively) or a ``.zip`` of images, sorted by
+    name, with optional labels (``dataset.json``: ``{"labels": [[name,
+    label], ...]}``; integer labels become one-hot, vectors are taken as
+    they are).  An item is ``(image, label)``: ``[H, W, C]`` uint8, RGBA
+    where the file is RGBA and RGB otherwise (a grey file's value repeated,
+    as PIL's ``convert('RGB')``), and the float32 label (``[0]`` without
+    labels).  ``max_size`` keeps a ``RandomState(random_seed)`` choice of
+    the files, in order; ``xflip`` doubles the items with mirrored copies.
+    Files are decoded by ``utils/png.py``: a JPEG, or a PNG form it does not
+    read, raises with the file's name."""
+
+    EXTENSIONS = ('.png', '.jpg', '.jpeg')
+
+    def __init__(self, path: str, resolution: Optional[int] = None,
+                 use_labels: bool = False, xflip: bool = False,
+                 max_size: Optional[int] = None, random_seed: int = 0,
+                 **_ignored):
+        self.path = path
+        self.name = os.path.splitext(os.path.basename(path))[0]
+        self._zip = None
+        if os.path.isdir(path):
+            self._files = sorted(
+                os.path.join(root, f)
+                for root, _, files in os.walk(path) for f in files
+                if f.lower().endswith(self.EXTENSIONS))
+        elif path.lower().endswith('.zip'):
+            import zipfile
+            self._zip = zipfile.ZipFile(path)
+            self._files = sorted(n for n in self._zip.namelist()
+                                 if n.lower().endswith(self.EXTENSIONS))
+        else:
+            raise IOError(f'unsupported dataset path {path}')
+        if not self._files:
+            raise IOError(f'no images in {path}')
+
+        self._labels = self._load_labels() if use_labels else None
+        probe = self._load_image(0)
+        self.resolution = resolution or probe.shape[0]
+        self.image_shape = tuple(probe.shape)
+        self.num_channels = probe.shape[2]
+        self.label_dim = (self._labels.shape[1]
+                          if self._labels is not None else 0)
+
+        n = len(self._files)
+        self.raw_idx = np.arange(n, dtype=np.int64)
+        if max_size is not None and n > max_size:
+            rnd = np.random.RandomState(random_seed)
+            self.raw_idx = np.sort(rnd.choice(n, size=max_size,
+                                              replace=False))
+        self.is_xflip = np.zeros(self.raw_idx.size, dtype=np.uint8)
+        if xflip:
+            self.raw_idx = np.tile(self.raw_idx, 2)
+            self.is_xflip = np.concatenate([self.is_xflip,
+                                            np.ones_like(self.is_xflip)])
+
+    def __getstate__(self):
+        # a ZipFile does not pickle (the ranks of ``train --gpus N``):
+        # each process opens the archive again
+        state = dict(self.__dict__)
+        state['_zip'] = None if self._zip is None else True
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        if self._zip is not None:
+            import zipfile
+            self._zip = zipfile.ZipFile(self.path)
+
+    def _name(self, i: int) -> str:
+        """File ``i``'s name in ``dataset.json``: its path relative to the
+        folder, or its name in the zip."""
+        if self._zip is not None:
+            return self._files[i]
+        return os.path.relpath(self._files[i], self.path).replace('\\', '/')
+
+    def _load_labels(self) -> Optional[np.ndarray]:
+        data = None
+        if self._zip is not None:
+            if 'dataset.json' in self._zip.namelist():
+                data = json.loads(self._zip.read('dataset.json'))
+        else:
+            p = os.path.join(self.path, 'dataset.json')
+            if os.path.exists(p):
+                with open(p) as f:
+                    data = json.load(f)
+        if data is None or data.get('labels') is None:
+            return None
+        lookup = {k: v for k, v in data['labels']}
+        labels = np.asarray([lookup[self._name(i)]
+                             for i in range(len(self._files))])
+        if labels.ndim == 1:
+            onehot = np.zeros((labels.size, labels.max() + 1), np.float32)
+            onehot[np.arange(labels.size), labels] = 1
+            return onehot
+        return labels.astype(np.float32)
+
+    def _load_image(self, i: int) -> np.ndarray:
+        """File ``i`` as ``[H, W, 3|4]`` uint8."""
+        if self._zip is not None:
+            data, name = self._zip.read(self._files[i]), \
+                f'{self.path}:{self._files[i]}'
+        else:
+            name = self._files[i]
+            with open(name, 'rb') as f:
+                data = f.read()
+        img = decode_png(data, name)
+        if img.shape[2] == 1:
+            img = np.repeat(img, 3, axis=2)
+        return img
+
+    def item_paths(self) -> List[str]:
+        """The files, sorted (listed when the dataset was made)."""
+        return list(self._files)
+
+    @property
+    def has_labels(self) -> bool:
+        return self._labels is not None
+
+    def get_label(self, index: int) -> np.ndarray:
+        if self._labels is None:
+            return np.zeros([0], np.float32)
+        return self._labels[self.raw_idx[index]]
+
+    def __len__(self) -> int:
+        return len(self.raw_idx)
+
+    def load_u8(self, index: int, out: Optional[np.ndarray] = None
+                ) -> np.ndarray:
+        """Item ``index``'s image, ``[H, W, C]`` uint8 (written into ``out``
+        when given); xflip flips W."""
+        img = self._load_image(self.raw_idx[index])
+        if self.is_xflip[index]:
+            img = img[:, ::-1]
+        if out is None:
+            return np.ascontiguousarray(img)
+        if out.shape != img.shape:
+            raise ValueError(f'{self._files[self.raw_idx[index]]}: an image '
+                             f'of shape {img.shape}, not {out.shape}')
+        out[...] = img
+        return out
+
+    def __getitem__(self, index: int):
+        return self.load_u8(index), self.get_label(index)

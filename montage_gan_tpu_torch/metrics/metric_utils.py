@@ -288,7 +288,8 @@ def compute_feature_stats_for_dataset(dataset, extractor,
                                       progress_fn=None,
                                       **stats_kwargs) -> FeatureStats:
     """Features of the first ``max_items`` samples (all where None) of a
-    ``DatasetAIO`` in batches of ``batch_size``, the last one ragged,
+    ``DatasetAIO`` (or an ``ImageFolderDataset``, whose images are not
+    composited) in batches of ``batch_size``, the last one ragged,
     through ``extractor`` on ``device`` (reference contract:
     metric_utils.py:192-246); cached in ``cache_dir`` by options hash,
     written by rank 0.  Each batch is decoded to uint8 on the host and
@@ -318,8 +319,9 @@ def compute_feature_stats_for_dataset(dataset, extractor,
             idx = range(k * batch_size, min((k + 1) * batch_size, n))
             u8 = torch.from_numpy(np.stack(list(pool.map(dataset.load_u8,
                                                          idx)))).to(dev)
-            return extractor(layers_to_metric_rgb(u8.to(torch.float32)
-                                                  / 255.0))
+            to_rgb = (layers_to_metric_rgb if u8.ndim == 5
+                      else images_to_metric_rgb)
+            return extractor(to_rgb(u8.to(torch.float32) / 255.0))
         for k, feats in enumerate(gather_in_order(num_batches, batch, dp)):
             stats.append(feats)
             _report(progress_fn, 'dataset', stats.num_items, n)
@@ -378,3 +380,33 @@ def ensemble_fns(model):
         return composite(model.run_global_g_from_ws(ws,
                                                     noise_mode='const')[0])
     return sample_fn, model.mapping, synth_fn
+
+
+def generator_fns(mapping, synthesis):
+    """``(sample_fn, map_fn, synth_fn)`` of one generator (a mapping and a
+    synthesis network: a reference ``.pkl``'s, or the single G of a 1-layer
+    ensemble, ``cli/train.py``'s): z → the image in [0, 1], z → ws, and
+    ws → the image, with constant synthesis noise (the JAX package's
+    ``cli/calc_metrics.py:66-77`` and ``cli/train.py:162-180``)."""
+    def synth_fn(ws):
+        return (synthesis(ws, noise_mode='const') * 0.5 + 0.5).clamp(0, 1)
+
+    def sample_fn(z):
+        return synth_fn(mapping(z))
+    return sample_fn, mapping, synth_fn
+
+
+def snapshot_fns(model):
+    """``(sample_fn, map_fn, synth_fn)`` of a ``MontageEnsemble``: its
+    single G's (``generator_fns``) where the config is a single GAN
+    (``MontageConfig.single_gan``), else the composite through its STN
+    (``ensemble_fns``).  An ensemble of several layers without the global
+    path makes no one image, and raises."""
+    cfg = model.cfg
+    if cfg.single_gan:
+        return generator_fns(model.mapping, model.local_g[0])
+    if not cfg.train_global:
+        raise ValueError(
+            f'a snapshot of {cfg.num_layers} layers without the global path '
+            '(train_global=False) has no composite image to score')
+    return ensemble_fns(model)

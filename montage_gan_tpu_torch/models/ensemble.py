@@ -58,6 +58,12 @@ class MontageConfig:
     def num_layers(self) -> int:
         return len(self.layer_names)
 
+    @property
+    def single_gan(self) -> bool:
+        """One layer and no global path: a single StyleGAN2-ADA G and D
+        (``cli/train.py``'s config, ``convert-pickle``'s snapshots)."""
+        return self.num_layers == 1 and not self.train_global
+
     def layer_geometry(self, idx: int) -> Tuple[Tuple[int, int], int]:
         """(init_res, nominal_resolution) of layer idx."""
         init_res, res, _ = calc_init_res(list(self.layer_targets[idx]),

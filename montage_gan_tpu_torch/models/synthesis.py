@@ -7,6 +7,8 @@ ensemble uses): a block at nominal resolution ``r`` has spatial extent
 bfloat16; ToRGB accumulates in float32.  Random noise comes from an explicit
 ``torch.Generator``, or from a training step's ``Draws``
 (``training/losses.py``), passed as ``generator``.  Activations are NHWC.
+``Generator`` is the monolithic mapping + synthesis module of the JAX
+package (``synthesis.py:272-307``), its submodules in the reference's order.
 """
 
 from __future__ import annotations
@@ -240,3 +242,43 @@ class SynthesisNetwork(nn.Module):
                            noise_mode=noise_mode, generator=generator)
             w_idx += block.num_conv
         return img
+
+
+class Generator(nn.Module):
+    """z (+c) → image: a ``MappingNetwork`` with one w per synthesis layer
+    and a ``SynthesisNetwork`` (``montage_gan_tpu/models/synthesis.py:
+    272-307``; the reference's custom/networks_aio.py:627-662)."""
+
+    def __init__(self, img_resolution: int, img_channels: int,
+                 z_dim: int = 512, w_dim: int = 512, c_dim: int = 0,
+                 init_res: Tuple[int, int] = (4, 4),
+                 conv_config_index: int = 2, mapping_num_layers: int = 8,
+                 channel_base: int = 32768, channel_max: int = 512,
+                 num_fp16_res: int = 0, conv_clamp: Optional[float] = None):
+        super().__init__()
+        from .mapping import MappingNetwork
+        self.z_dim, self.c_dim, self.w_dim = z_dim, c_dim, w_dim
+        self.synthesis = SynthesisNetwork(
+            img_resolution=img_resolution, img_channels=img_channels,
+            w_dim=w_dim, init_res=init_res,
+            conv_config_index=conv_config_index, channel_base=channel_base,
+            channel_max=channel_max, num_fp16_res=num_fp16_res,
+            conv_clamp=conv_clamp)
+        self.num_ws = self.synthesis.num_ws
+        self.mapping = MappingNetwork(z_dim=z_dim, w_dim=w_dim, c_dim=c_dim,
+                                      num_ws=self.num_ws,
+                                      num_layers=mapping_num_layers)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        self.synthesis.reset_parameters(generator)
+        self.mapping.reset_parameters(generator)
+
+    def forward(self, z: torch.Tensor, c: Optional[torch.Tensor] = None,
+                truncation_psi: float = 1.0,
+                truncation_cutoff: Optional[int] = None,
+                noise_mode: str = 'random', update_w_avg: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        ws = self.mapping(z, c, truncation_psi=truncation_psi,
+                          truncation_cutoff=truncation_cutoff,
+                          update_w_avg=update_w_avg)
+        return self.synthesis(ws, noise_mode=noise_mode, generator=generator)

@@ -2,8 +2,9 @@
 //
 // `src` holds `height` scanlines, each a filter byte (0 None, 1 Sub, 2 Up,
 // 3 Average, 4 Paeth) followed by `width * channels` bytes; `channels` is 4
-// (RGBA) or 3 (RGB).  The reconstructed pixels are written to `dst` as a
-// contiguous [height, width, 4] RGBA array; an RGB image gets alpha 255.
+// (RGBA), 3 (RGB) or 1 (grey).  The reconstructed pixels are written to
+// `dst` as a contiguous [height, width, 4] RGBA array; an RGB image gets
+// alpha 255, a grey one its value in R, G and B and alpha 255.
 // No dependencies beyond the C++ standard library; bound with ctypes by
 // montage_gan_tpu_torch/utils/png.py, which releases the GIL around the call.
 //
@@ -75,6 +76,11 @@ extern "C" int mgt_png_unfilter(const uint8_t* src, long long src_len,
         uint8_t* out = dst + static_cast<long long>(y) * width * 4;
         if (channels == 4) {
             std::memcpy(out, cur.data(), row_len);
+        } else if (channels == 1) {
+            for (int x = 0; x < width; ++x) {
+                out[4 * x + 0] = out[4 * x + 1] = out[4 * x + 2] = cur[x];
+                out[4 * x + 3] = 255;
+            }
         } else {
             for (int x = 0; x < width; ++x) {
                 out[4 * x + 0] = cur[3 * x + 0];

@@ -184,6 +184,32 @@ def leading_rows(x: torch.Tensor, shrink: int) -> torch.Tensor:
     return rows[dp.rank * n:(dp.rank + 1) * n].clone()
 
 
+@torch.no_grad()
+def global_rows(x: torch.Tensor, rounds: int = 1) -> torch.Tensor:
+    """The global batch of ``x`` (no gradient), where each rank holds its
+    share of each of ``rounds`` rounds laid end to end: round-major, the
+    ranks' rows of a round in rank order.  Without active ranks ``x``."""
+    dp = active()
+    if dp is None:
+        return x
+    parts = [torch.empty_like(x) for _ in range(dp.world)]
+    dist.all_gather(parts, x.contiguous())
+    rest = x.shape[1:]
+    full = torch.stack(parts).reshape(dp.world, rounds, -1, *rest)
+    return full.transpose(0, 1).reshape(-1, *rest)
+
+
+def own_rows(x: torch.Tensor, rounds: int = 1) -> torch.Tensor:
+    """This rank's rows of a global batch laid out as ``global_rows`` lays
+    it out.  Without active ranks ``x``."""
+    dp = active()
+    if dp is None:
+        return x
+    rest = x.shape[1:]
+    return x.reshape(rounds, dp.world, -1, *rest)[:, dp.rank].reshape(
+        -1, *rest)
+
+
 def all_reduce_grads(grads: Sequence[Optional[torch.Tensor]]
                      ) -> List[Optional[torch.Tensor]]:
     """A phase's gradients averaged over the ranks: one flat buffer per

@@ -60,26 +60,50 @@ def expected_train_launches(model, hyper, steps):
     With microbatch accumulation every round runs its phase's forward and
     backward over its slice of the batch: the local phases' launches are
     multiplied by ``hyper.accum_rounds``, the renderer's and the global
-    phases' by ``hyper.global_accum_rounds``."""
+    phases' by ``hyper.global_accum_rounds``.
+
+    A conditional ensemble (``cfg.c_dim > 0``; the single-GAN ``train``
+    with ``--cond``) adds the label ``embed`` FC to every mapping call (K1';
+    linear with gain 1, so its backward launches nothing), and every local D
+    call runs its own ``mapping`` (Md FCs: the embed and Ld lrelu FCs) for
+    the projection: Md K1' per D forward, and Ld K1' grad where the backward
+    reaches D's weights through the label map (Dmain's two D calls, and
+    Dr1's outer pass, whose inner gradient reads the map); Gmain's backward
+    stops at the G's weights and does not enter it.  Freeze-D
+    (``cfg.freeze_d_layers``): the F frozen layers are the first ones, and
+    every layer upstream of a frozen one is frozen too, so a backward to D's
+    weights runs none of their backward nodes: F fewer K1' grad in each of
+    Dmain's two D calls and in Dr1's outer pass (their forward nodes; the
+    inner pass still runs to the image).  This is the launch count of a
+    1-layer ensemble (``train``) as well as of config ``aio``."""
     from ..models.layers import Conv2dLayer, FullyConnected
     from ..models.synthesis import SynthesisLayer, ToRGBLayer
 
     def d_counts(d):
-        return (_count(d, (Conv2dLayer, FullyConnected)),
-                sum(_count(b, Conv2dLayer) for b in d.blocks()))
+        """(bias_act layers of D's body, of its blocks, of its label map,
+        lrelu layers of its label map, frozen layers)."""
+        cond = getattr(d, 'c_dim', 0) > 0
+        md = _count(d.mapping, FullyConnected) if cond else 0
+        frozen = sum(not m.trainable for m in d.modules()
+                     if isinstance(m, Conv2dLayer))
+        return (_count(d, (Conv2dLayer, FullyConnected)) - md,
+                sum(_count(b, Conv2dLayer) for b in d.blocks()), md,
+                d.mapping.num_layers if cond else 0, frozen)
 
     def has_warp(aug):
         return int(aug is not None and (aug.any_blit or aug.any_geom))
 
     warp = has_warp(hyper.augment if not hyper.local_noaug else None)
     gwarp = has_warp(hyper.augment if not hyper.global_noaug else None)
-    m = model.mapping.num_layers * (2 if hyper.style_mixing_prob > 0 else 1)
+    calls = 2 if hyper.style_mixing_prob > 0 else 1
+    m_grad = model.mapping.num_layers * calls
+    m = m_grad + int(model.cfg.c_dim > 0) * calls     # the label embed
     clamped = int(model.cfg.conv_clamp is not None)
     g_fwd = g_grad = g_up = 0        # one global forward: all local Gs
     for g in model.local_g:
         s, t = _count(g, SynthesisLayer), _count(g, ToRGBLayer)
         g_fwd += m + s + t + _count(g, FullyConnected)
-        g_grad += m + s + t * clamped
+        g_grad += m_grad + s + t * clamped
         g_up += len(g.block_resolutions) - 1
     use_r = not hyper.bypass_renderer and model.renderer is not None
     rounds, grounds = hyper.accum_rounds, hyper.global_accum_rounds
@@ -99,13 +123,17 @@ def expected_train_launches(model, hyper, steps):
             n_g = s + t + _count(g, FullyConnected)
             t_grad = t * clamped
             blocks = len(g.block_resolutions)
-            n_d, lb = d_counts(d)
-            out['bias_act'] += rounds * ((m + n_g + n_d) + greg * (m + n_g)
-                                         + (m + n_g + 2 * n_d) + dr1 * n_d)
-            out['bias_act_grad'] += rounds * ((n_d - 1 + s + t_grad + m)
-                                              + greg * (3 * s + t_grad + m)
-                                              + 2 * (n_d - 1)
-                                              + dr1 * (2 * (n_d - 1) + lb))
+            n_d, lb, md, md_grad, f = d_counts(d)
+            d_fwd = n_d + md
+            out['bias_act'] += rounds * ((m + n_g + d_fwd)
+                                         + greg * (m + n_g)
+                                         + (m + n_g + 2 * d_fwd)
+                                         + dr1 * d_fwd)
+            out['bias_act_grad'] += rounds * (
+                (n_d - 1 + s + t_grad + m_grad)
+                + greg * (3 * s + t_grad + m_grad)
+                + 2 * (n_d - 1 - f + md_grad)
+                + dr1 * (2 * (n_d - 1) + lb - f + md_grad))
             out['upfirdn2d'] += rounds * (blocks - 1) * (2 + 2 * greg + 1)
             out['warp_forward'] += rounds * warp * (2 + 2 * dr1)
             out['warp_transpose'] += rounds * warp * (1 + dr1)
@@ -114,7 +142,7 @@ def expected_train_launches(model, hyper, steps):
         if not glob:
             continue
         goi = hyper.global_optimize_interval
-        n_d, lb = d_counts(model.global_d)
+        n_d, lb, _, _, _ = d_counts(model.global_d)
         main = int(step % goi == 0) * grounds
         gr1 = int(hyper.d_reg_interval is not None
                   and hyper.global_r1_gamma != 0

@@ -32,7 +32,9 @@ class Draws:
     ``kind`` says what a draw is for: ``'z'``, ``'style_mixing'`` (the
     second z), ``'style_mixing_cutoff'`` (one pair for the batch),
     ``'pl_noise'``, ``'synthesis_noise'`` or ``'augment'`` in the local
-    phases.  The renderer phase and the global phases draw through
+    phases; a conditional step also draws a permutation of its label pool
+    per phase (``permutation``, kind ``'gen_c'``), over the global batch
+    and the same on every rank.  The renderer phase and the global phases draw through
     ``scoped('renderer_')`` and ``scoped('global_')``, which prefix the kind
     (``'renderer_z'``, ``'global_synthesis_noise'``, ``'global_augment'``,
     ...).  A subclass may answer each kind differently."""
@@ -48,6 +50,11 @@ class Draws:
     def uniform(self, shape: Sequence[int], kind: str) -> torch.Tensor:
         return torch.rand(tuple(shape), generator=self.generator,
                           device=self.device)
+
+    def permutation(self, n: int, kind: str) -> torch.Tensor:
+        """A random permutation of ``range(n)`` (int64)."""
+        return torch.randperm(n, generator=self.generator,
+                              device=self.device)
 
     def scoped(self, prefix: str) -> 'Draws':
         """These draws, with ``prefix`` before every kind."""
@@ -108,6 +115,9 @@ class _Scoped(Draws):
 
     def uniform(self, shape: Sequence[int], kind: str) -> torch.Tensor:
         return self.base.uniform(shape, self.prefix + kind)
+
+    def permutation(self, n: int, kind: str) -> torch.Tensor:
+        return self.base.permutation(n, self.prefix + kind)
 
     def blocks(self, count: int) -> 'Draws':
         return _Scoped(self.base.blocks(count), self.prefix)

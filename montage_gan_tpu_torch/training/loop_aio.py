@@ -174,6 +174,53 @@ class BatchPrefetcher:
         self.pool.shutdown(wait=True)
 
 
+class ImageBatchPrefetcher(BatchPrefetcher):
+    """``BatchPrefetcher`` for a flat dataset (``ImageFolderDataset``, the
+    single-GAN ``train``): batches ``(images, real_c, gen_c)``, the images
+    ``[B, H, W, C]`` uint8 in the sampler's stream order, rank ``rank``
+    taking its stride, decoded on the thread pool.  With ``labels`` the
+    reals' labels and a pool of generated samples' labels (float32
+    ``[B, c_dim]``; else None): the pool is drawn from the dataset's labels
+    by a ``RandomState(seed + 2)``, as the JAX package's ``cli/train.py:201``
+    draws it, ``batch_size * num_replicas`` indices a step, the same on
+    every rank, of which each rank keeps its ``batch_size`` rows in rank
+    order (the trainer's row layout, ``parallel/mesh.py``)."""
+
+    def __init__(self, dataset, batch_size: int, seed: int = 0,
+                 depth: int = 3, pin_memory: bool = False, rank: int = 0,
+                 num_replicas: int = 1, labels: bool = False):
+        self.labels = labels
+        self.rank = rank
+        self.global_batch = batch_size * num_replicas
+        self.label_rng = np.random.RandomState(seed + 2)
+        super().__init__(dataset, batch_size, (), seed=seed, depth=depth,
+                         pin_memory=pin_memory, rank=rank,
+                         num_replicas=num_replicas)
+
+    def _load(self, index: int, out: np.ndarray) -> None:
+        self.dataset.load_u8(index, out=out)
+
+    def _fetch(self):
+        idxs = [next(self.sampler) for _ in range(self.batch_size)]
+        images = self._empty((self.batch_size, *self.dataset.image_shape))
+        out = images.numpy()
+        futures = [self.pool.submit(self._load, i, out[b])
+                   for b, i in enumerate(idxs)]
+        for f in futures:
+            f.result()
+        if not self.labels:
+            return images, None, None
+        real_c = torch.from_numpy(np.stack(
+            [self.dataset.get_label(i) for i in idxs]).astype(np.float32))
+        pool = self.label_rng.randint(len(self.dataset),
+                                      size=self.global_batch)
+        mine = pool[self.rank * self.batch_size:
+                    (self.rank + 1) * self.batch_size]
+        gen_c = torch.from_numpy(np.stack(
+            [self.dataset.get_label(i) for i in mine]).astype(np.float32))
+        return images, real_c, gen_c
+
+
 def to_device(batch, lut: torch.Tensor
               ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """A prefetched ``(stack, crops)`` batch in [-1, 1] float32 on the
@@ -453,8 +500,9 @@ def training_loop(
                 if metric_extractor is None:
                     from ..metrics.features import build_extractor
                     metric_extractor = build_extractor('auto', device=dev)
-                _score(metrics, state.ema, dataset, metric_extractor,
-                       run_dir, snapshot_path, acc, dev)
+                score_snapshot(metrics, state.ema, dataset,
+                               metric_extractor, run_dir, snapshot_path,
+                               acc, dev)
 
             collector.update()
             if jsonl is not None:
@@ -485,15 +533,16 @@ def training_loop(
     return state
 
 
-def _score(metrics, ema, dataset, extractor, run_dir, snapshot_path, acc,
-           dev):
-    """Each metric of ``metrics`` on the EMA ensemble (every rank takes its
-    share; rank 0 writes ``metric-<name>.jsonl``), reported into ``acc`` as
-    ``Metrics/<key>`` on every rank (the collector averages the ranks'
-    equal values)."""
+def score_snapshot(metrics, ema, dataset, extractor, run_dir,
+                   snapshot_path, acc, dev):
+    """Each metric of ``metrics`` on the EMA ensemble, or its single G
+    (``metric_utils.snapshot_fns``): every rank takes its share, rank 0
+    writes ``metric-<name>.jsonl``, and each result is reported into
+    ``acc`` as ``Metrics/<key>`` on every rank (the collector averages the
+    ranks' equal values)."""
     from ..metrics import metric_main
-    from ..metrics.metric_utils import ensemble_fns
-    sample_fn, map_fn, synth_fn = ensemble_fns(ema)
+    from ..metrics.metric_utils import snapshot_fns
+    sample_fn, map_fn, synth_fn = snapshot_fns(ema)
     for metric in metrics:
         result = metric_main.calc_metric(
             metric, dataset=dataset, sample_fn=sample_fn, map_fn=map_fn,

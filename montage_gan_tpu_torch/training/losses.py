@@ -5,7 +5,10 @@ losses, style mixing, the path-length regularizer and R1 through the augment
 pipe for the local GANs (lines 50-253); the theta constraint, the global G
 forward (9 local Gs → STN), the global D (renderer or composite → augment →
 D), global Gmain, Dmain and R1, and the renderer's self-supervised loss
-(lines 260-531).  Each function reads the modules' parameters directly; the
+(lines 260-531).  The local losses take the conditional labels of the JAX
+package's (lines 83-244): ``c`` of the generated samples (the mapping, its
+style-mixing branch and D on them) and ``real_c`` of the reals.  Each
+function reads the modules' parameters directly; the
 trainer asks autograd for the gradients of the parameters its phase trains.
 Path length and both R1s keep the double-backward structure
 (``create_graph=True``): the outer gradient differentiates the inner one, as
@@ -45,18 +48,19 @@ Stats = Dict[str, torch.Tensor]
 
 def run_mapping_with_mixing(ens: MontageEnsemble, z: torch.Tensor,
                             draws: Draws, style_mixing_prob: float,
-                            update_w_avg: bool = True) -> torch.Tensor:
-    """z → ws with style mixing: with probability ``style_mixing_prob`` the
-    ws from a cutoff on (one cutoff for the batch, uniform in
-    ``[1, num_ws)``) come from a second z."""
-    ws = ens.mapping(z, update_w_avg=update_w_avg)
+                            update_w_avg: bool = True,
+                            c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """z (and the label ``c``) → ws with style mixing: with probability
+    ``style_mixing_prob`` the ws from a cutoff on (one cutoff for the batch,
+    uniform in ``[1, num_ws)``) come from a second z with the same ``c``."""
+    ws = ens.mapping(z, c, update_w_avg=update_w_avg)
     if style_mixing_prob > 0:
         num_ws = ws.shape[-2]
         u = draws.uniform([2], 'style_mixing_cutoff')
         cutoff = 1 + torch.floor(u[0] * (num_ws - 1))
         cutoff = torch.where(u[1] < style_mixing_prob, cutoff,
                              torch.full_like(cutoff, num_ws))
-        ws2 = ens.mapping(draws.normal(z.shape, 'style_mixing'))
+        ws2 = ens.mapping(draws.normal(z.shape, 'style_mixing'), c)
         idx = torch.arange(num_ws, device=ws.device)
         mask = (idx >= cutoff).reshape((1,) * (ws.ndim - 2) + (num_ws, 1))
         ws = torch.where(mask, ws2, ws)
@@ -65,28 +69,31 @@ def run_mapping_with_mixing(ens: MontageEnsemble, z: torch.Tensor,
 
 def run_local_g(ens: MontageEnsemble, layer: int, z: torch.Tensor,
                 draws: Draws, style_mixing_prob: float,
-                update_w_avg: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                update_w_avg: bool = True, c: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """run_G for one layer: (img, ws of the layer)."""
     ws = run_mapping_with_mixing(ens, z, draws, style_mixing_prob,
-                                 update_w_avg)
+                                 update_w_avg, c=c)
     ws_l = ens.ws_for_layer(ws, layer)
     return ens.local_g[layer](ws_l, noise_mode='random', generator=draws), ws_l
 
 
 def run_d(d, img: torch.Tensor, aug_cfg: Optional[AugmentConfig], aug_p,
-          draws: Draws) -> torch.Tensor:
-    """AugmentPipe → D."""
+          draws: Draws, c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """AugmentPipe → D (with the label ``c`` of a conditional D)."""
     if aug_cfg is not None:
         img = augment_pipe(img, aug_p, aug_cfg, draws)
-    return d(img)
+    return d(img) if c is None else d(img, c)
 
 
 def local_gmain_loss(ens: MontageEnsemble, layer: int, z: torch.Tensor,
                      draws: Draws, aug_cfg: Optional[AugmentConfig], aug_p,
-                     style_mixing_prob: float = 0.9) -> Tuple[torch.Tensor, Stats]:
+                     style_mixing_prob: float = 0.9,
+                     c: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, Stats]:
     """G's non-saturating loss against the (not trained) local D."""
-    img, _ = run_local_g(ens, layer, z, draws, style_mixing_prob)
-    logits = run_d(ens.local_d[layer], img, aug_cfg, aug_p, draws)
+    img, _ = run_local_g(ens, layer, z, draws, style_mixing_prob, c=c)
+    logits = run_d(ens.local_d[layer], img, aug_cfg, aug_p, draws, c=c)
     loss = F.softplus(-logits).mean()
     return loss, {'Loss/scores/fake': logits.mean(),
                   'Loss/signs/fake': logits.sign().mean(),
@@ -96,7 +103,8 @@ def local_gmain_loss(ens: MontageEnsemble, layer: int, z: torch.Tensor,
 def local_gpl_loss(ens: MontageEnsemble, layer: int, z: torch.Tensor,
                    draws: Draws, pl_mean: torch.Tensor,
                    pl_batch_shrink: int = 2, pl_decay: float = 0.01,
-                   pl_weight: float = 2.0, style_mixing_prob: float = 0.9
+                   pl_weight: float = 2.0, style_mixing_prob: float = 0.9,
+                   c: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, Stats]:
     """Path-length regularizer: the gradient of ``sum(img · noise)`` with
     respect to the layer's ws (no weight gradients in the inner pass), its
@@ -104,8 +112,10 @@ def local_gpl_loss(ens: MontageEnsemble, layer: int, z: torch.Tensor,
     ``1/pl_batch_shrink`` of the (global) batch.  Returns (loss, new
     pl_mean, stats)."""
     z = mesh.leading_rows(z, pl_batch_shrink)
+    if c is not None:
+        c = mesh.leading_rows(c, pl_batch_shrink)
     batch = z.shape[0]
-    ws = run_mapping_with_mixing(ens, z, draws, style_mixing_prob)
+    ws = run_mapping_with_mixing(ens, z, draws, style_mixing_prob, c=c)
     ws_l = ens.ws_for_layer(ws, layer)
     th, tw = ens.cfg.layer_targets[layer]
     pl_noise = draws.normal([batch, th, tw, ens.cfg.img_channels],
@@ -125,14 +135,17 @@ def local_gpl_loss(ens: MontageEnsemble, layer: int, z: torch.Tensor,
 def local_dmain_loss(ens: MontageEnsemble, layer: int, z: torch.Tensor,
                      real_img: torch.Tensor, draws: Draws,
                      aug_cfg: Optional[AugmentConfig], aug_p,
-                     style_mixing_prob: float = 0.9
+                     style_mixing_prob: float = 0.9,
+                     gen_c: Optional[torch.Tensor] = None,
+                     real_c: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, Stats, torch.Tensor]:
     """Dgen + Dreal.  The fakes (no gradient) and the reals ride through one
     augment call (every draw in the pipe is per sample); D runs on each half
     apart, since the minibatch-std groups must not mix them.  Returns (loss,
     stats, mean sign of the real logits)."""
     with torch.no_grad():
-        gen_img, _ = run_local_g(ens, layer, z, draws, style_mixing_prob)
+        gen_img, _ = run_local_g(ens, layer, z, draws, style_mixing_prob,
+                                 c=gen_c)
     if aug_cfg is not None:
         both = augment_pipe(torch.cat([gen_img, real_img]), aug_p, aug_cfg,
                             draws.blocks(2))
@@ -140,7 +153,8 @@ def local_dmain_loss(ens: MontageEnsemble, layer: int, z: torch.Tensor,
     else:
         gen_in, real_in = gen_img, real_img
     d = ens.local_d[layer]
-    gen_logits, real_logits = d(gen_in), d(real_in)
+    gen_logits = d(gen_in) if gen_c is None else d(gen_in, gen_c)
+    real_logits = d(real_in) if real_c is None else d(real_in, real_c)
     loss = F.softplus(gen_logits).mean() + F.softplus(-real_logits).mean()
     sign_real = real_logits.sign().mean()
     return loss, {'Loss/scores/fake': gen_logits.mean(),
@@ -152,13 +166,15 @@ def local_dmain_loss(ens: MontageEnsemble, layer: int, z: torch.Tensor,
 
 def local_dr1_loss(ens: MontageEnsemble, layer: int, real_img: torch.Tensor,
                    draws: Draws, aug_cfg: Optional[AugmentConfig], aug_p,
-                   r1_gamma: float = 10.0
+                   r1_gamma: float = 10.0,
+                   real_c: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Stats, torch.Tensor]:
     """R1: the gradient of D's logits with respect to the real image,
     through the augment pipe; the outer gradient reaches D's weights through
     it.  Returns (loss, stats, mean sign of the real logits)."""
     real = real_img.detach().requires_grad_(True)
-    logits = run_d(ens.local_d[layer], real, aug_cfg, aug_p, draws)
+    logits = run_d(ens.local_d[layer], real, aug_cfg, aug_p, draws,
+                   c=real_c)
     r1_grads, = torch.autograd.grad(logits.sum(), real, create_graph=True)
     r1_penalty = r1_grads.square().sum(dim=(1, 2, 3))
     loss = r1_penalty.mean() * (r1_gamma / 2)

@@ -30,8 +30,13 @@ NaN/inf before every optimizer step.  PyTorch updates in place: the
 ensemble's parameters and buffers (``w_avg``) move inside the step, and
 ``train_step`` returns the state it was given.  The phases run eagerly;
 JAX's single traced program and its TPU dispatch machinery
-(``phase_exec.py``) have no counterpart.  Not ported yet (it raises
-``NotImplementedError``): conditional labels.
+(``phase_exec.py``) have no counterpart.
+
+Conditional labels (``real_c``, ``gen_c``; the JAX package's lines
+408-414): the reals' labels feed D on the reals (Dmain and Dr1); ``gen_c``
+is a pool of labels, of which each local phase draws its own permutation
+(``Draws.permutation``, kind ``'gen_c'``) for the mapping and for D on the
+fakes.  The global and renderer phases take no labels, as in the JAX step.
 
 Data parallelism (``MontageTrainer(..., data_parallel=...)``, the JAX
 package's step over its data mesh): each rank of ``parallel/mesh.py`` runs
@@ -396,6 +401,10 @@ class MontageTrainer:
             rng: a ``torch.Generator`` on the trainer's device, seeded
                 alike on every rank, or a ``Draws`` (the seam a test uses
                 to inject draws).
+            real_c: ``[B, c_dim]`` labels of the reals, or None.
+            gen_c: ``[B, c_dim]`` label pool of the generated samples
+                (this rank's rows, laid out as the reals), or None; given
+                with ``real_c``.
         Returns:
             (state, dict of scalar tensors).
         """
@@ -409,11 +418,12 @@ class MontageTrainer:
                      real_c=None, gen_c=None):
         """``train_step`` with phase gates (the JAX package's, without its
         host-scheduling refinements)."""
-        if real_c is not None or gen_c is not None:
-            raise NotImplementedError('conditional labels are not ported yet')
+        if (real_c is None) != (gen_c is None):
+            raise ValueError('a conditional step takes real_c and gen_c')
         with mesh.activate(self.dp):
             return self._step(state, real_stack, real_crops, rng, do_local,
-                              do_global, do_renderer, do_ema_ada)
+                              do_global, do_renderer, do_ema_ada, real_c,
+                              gen_c)
 
     def _apply(self, name: str, opt, params, grads) -> None:
         if self.phase_hook is not None:
@@ -421,7 +431,7 @@ class MontageTrainer:
         _apply_grads(opt, params, grads)
 
     def _step(self, state, real_stack, real_crops, rng, do_local, do_global,
-              do_renderer, do_ema_ada):
+              do_renderer, do_ema_ada, real_c, gen_c):
         ens, hyper, dev, dp = self.ens, self.hyper, self.device, self.dp
         if isinstance(rng, Draws):
             draws = rng
@@ -446,6 +456,21 @@ class MontageTrainer:
 
         def z(rounds, d=draws):
             return d.blocks(rounds).normal([batch, ens.cfg.z_dim], 'z')
+
+        # the labels: () where the step is not conditional
+        real_cs = () if real_c is None else (as_tensor(real_c),)
+        pool = (None if gen_c is None
+                else mesh.global_rows(as_tensor(gen_c), self.rounds))
+
+        def gen_cs():
+            """The phase's permutation of the label pool, this rank's rows."""
+            if pool is None:
+                return ()
+            perm = draws.permutation(pool.shape[0], 'gen_c')
+            return (mesh.own_rows(pool[perm], self.rounds),)
+
+        def one(cs):
+            return cs[0] if cs else None
 
         need_stack = ((do_renderer and hyper.train_renderer
                        and self._use_renderer)
@@ -477,13 +502,14 @@ class MontageTrainer:
                 d_params = list(ens.local_d[i].parameters())
 
                 # ---- local_Gmain
-                def gmain(z_mb, i=i, aug_p=aug_p):
+                def gmain(z_mb, *c_mb, i=i, aug_p=aug_p):
                     loss, st = losses.local_gmain_loss(
                         ens, i, z_mb, draws, self._local_aug, aug_p,
-                        hyper.style_mixing_prob)
+                        hyper.style_mixing_prob, c=one(c_mb))
                     return loss, {'stats': st}
+                data = (z(self.rounds),)
                 aux, grads = accum_value_and_grad(
-                    gmain, g_params[i], (z(self.rounds),), self.rounds, w_avg)
+                    gmain, g_params[i], data + gen_cs(), self.rounds, w_avg)
                 self._apply(f'{name}/Gmain', state.opt_local_g[i],
                             g_params[i], grads)
                 _merge_stats(stats, {f'{name}/{k}': v
@@ -491,28 +517,32 @@ class MontageTrainer:
                 # ---- local_Greg (path length)
                 if (hyper.g_reg_interval is not None and hyper.pl_weight != 0
                         and step % hyper.g_reg_interval == 0):
-                    def gpl(z_mb, i=i, pl_mean=state.pl_mean[i]):
+                    def gpl(z_mb, *c_mb, i=i, pl_mean=state.pl_mean[i]):
                         loss, pl_i, st = losses.local_gpl_loss(
                             ens, i, z_mb, draws, pl_mean,
                             hyper.pl_batch_shrink, hyper.pl_decay,
-                            hyper.pl_weight, hyper.style_mixing_prob)
+                            hyper.pl_weight, hyper.style_mixing_prob,
+                            c=one(c_mb))
                         return (loss * float(hyper.g_reg_interval),
                                 {'stats': st, 'pl_mean': pl_i})
+                    data = (z(self.rounds),)
                     aux, grads = accum_value_and_grad(
-                        gpl, g_params[i], (z(self.rounds),), self.rounds,
+                        gpl, g_params[i], data + gen_cs(), self.rounds,
                         w_avg)
                     self._apply(f'{name}/Greg', state.opt_local_g[i],
                                 g_params[i], grads)
                     state.pl_mean[i] = aux['pl_mean']
 
                 # ---- local_Dmain
-                def dmain(z_mb, real_mb, i=i, aug_p=aug_p):
+                def dmain(z_mb, real_mb, *c_mb, i=i, aug_p=aug_p):
+                    gc, rc = c_mb if c_mb else (None, None)
                     loss, st, sign_real = losses.local_dmain_loss(
                         ens, i, z_mb, real_mb, draws, self._local_aug, aug_p,
-                        hyper.style_mixing_prob)
+                        hyper.style_mixing_prob, gen_c=gc, real_c=rc)
                     return loss, {'stats': st, 'sign_real': sign_real}
+                data = (z(self.rounds), crops[i])
                 aux, grads = accum_value_and_grad(
-                    dmain, d_params, (z(self.rounds), crops[i]), self.rounds,
+                    dmain, d_params, data + gen_cs() + real_cs, self.rounds,
                     w_avg)
                 self._apply(f'{name}/Dmain', state.opt_local_d[i], d_params,
                             grads)
@@ -523,14 +553,14 @@ class MontageTrainer:
                 # ---- local_Dreg (R1)
                 if (hyper.d_reg_interval is not None and hyper.r1_gamma != 0
                         and step % hyper.d_reg_interval == 0):
-                    def dr1(real_mb, i=i, aug_p=aug_p):
+                    def dr1(real_mb, *c_mb, i=i, aug_p=aug_p):
                         loss, st, sign_real = losses.local_dr1_loss(
                             ens, i, real_mb, draws, self._local_aug, aug_p,
-                            hyper.r1_gamma)
+                            hyper.r1_gamma, real_c=one(c_mb))
                         return (loss * float(hyper.d_reg_interval),
                                 {'stats': st, 'sign_real': sign_real})
                     aux, grads = accum_value_and_grad(
-                        dr1, d_params, (crops[i],), self.rounds)
+                        dr1, d_params, (crops[i],) + real_cs, self.rounds)
                     self._apply(f'{name}/Dr1', state.opt_local_d[i],
                                 d_params, grads)
                     signs[i] += aux['sign_real']

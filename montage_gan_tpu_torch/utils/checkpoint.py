@@ -116,8 +116,9 @@ def restore_train_state(path: str, trainer):
     would have taken."""
     if path.endswith('.msgpack'):
         raise ValueError(f'{path}: a JAX train state; its optax moments do '
-                         'not carry over to the port (ROADMAP queue 1, item '
-                         '7). Resume from a port snapshot (.pt)')
+                         'not carry over to the port (ROADMAP §3, "JAX train '
+                         'states on --resume"). Resume from a port snapshot '
+                         '(.pt)')
     # Read on the host: each load_state_dict below moves what it takes to
     # the trainer's device, as a fresh run has it (Adam keeps its step
     # count on the host; one on the card would sync at every update).

@@ -187,23 +187,34 @@ def _resample_axis(u8: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.moveaxis(out, 0, axis)
 
 
+def resize_lanczos(u8: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``PIL.Image.fromarray(u8).resize((width, height), Image.LANCZOS)``
+    for an ``[H, W, C]`` uint8 image in a mode PIL resizes channel by
+    channel (C = 1 'L', C = 3 'RGB'): a copy where the size already matches;
+    else resized horizontally then vertically, each pass rounded to 8
+    bits."""
+    if u8.shape[:2] == (height, width):
+        return u8.copy()
+    if width != u8.shape[1]:
+        u8 = _resample_axis(u8, width, 1)
+    if height != u8.shape[0]:
+        u8 = _resample_axis(u8, height, 0)
+    return u8
+
+
 def resize_lanczos_rgba(u8: np.ndarray, width: int, height: int
                         ) -> np.ndarray:
     """``PIL.Image.fromarray(u8, 'RGBA').resize((width, height),
     Image.LANCZOS)`` for an ``[H, W, 4]`` uint8 image: a copy where the size
-    already matches; else premultiplied by alpha (8-bit), resized
-    horizontally then vertically, each pass rounded to 8 bits, and
-    un-premultiplied (8-bit)."""
+    already matches; else premultiplied by alpha (8-bit), resized as
+    ``resize_lanczos``, and un-premultiplied (8-bit)."""
     if u8.shape[:2] == (height, width):
         return u8.copy()
     a = u8[..., 3:].astype(np.uint32)
     tmp = u8[..., :3].astype(np.uint32) * a + 128
-    pre = np.concatenate([((tmp >> 8) + tmp) >> 8, a], axis=-1).astype(
-        np.uint8)
-    if width != u8.shape[1]:
-        pre = _resample_axis(pre, width, 1)
-    if height != u8.shape[0]:
-        pre = _resample_axis(pre, height, 0)
+    pre = resize_lanczos(np.concatenate([((tmp >> 8) + tmp) >> 8, a],
+                                        axis=-1).astype(np.uint8),
+                         width, height)
     alpha = pre[..., 3:].astype(np.int64)
     color = pre[..., :3].astype(np.int64)
     straight = np.clip(255 * color // np.maximum(alpha, 1), 0, 255)

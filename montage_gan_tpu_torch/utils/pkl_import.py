@@ -508,3 +508,101 @@ def load_reference_state(module, state_dict, name: str = '') -> None:
     if missing or result.unexpected_keys:
         raise KeyError(f'{name}: missing {missing}, unexpected '
                        f'{result.unexpected_keys}')
+
+
+def _jax_path(net: str, key: str) -> Optional[Tuple[str, ...]]:
+    """The path in the JAX package's variable tree of a reference state-dict
+    entry of a mapping, a synthesis network or a D (``net``), as
+    ``torch_import`` converts it; None for what it drops (the
+    ``resample_filter`` constants, a D mapping's ``w_avg``)."""
+    parts = tuple(key.split('.'))
+    if parts[-1] == 'resample_filter':
+        return None
+    if net == 'mapping':
+        return (('moving_stats', 'w_avg') if key == 'w_avg'
+                else ('params', *parts))
+    if net == 'synthesis' and parts[-1] == 'noise_const':
+        return ('noise', *parts)
+    if net == 'd' and key == 'mapping.w_avg':
+        return None
+    return ('params', *parts)
+
+
+def _transfer(module, src: Dict[str, Any], net: str, label: str,
+              copied: list, skipped: list) -> None:
+    """Copy the entries of the reference state dict ``src`` into ``module``
+    where the name exists and the shape matches, counting as the JAX
+    package's ``_merge_matching_leaves`` counts (``pkl_import.py:
+    467-486``): a copied tensor, a tensor of another shape, and once each
+    subtree of the JAX tree that the module lacks."""
+    import torch
+    own = module.state_dict()
+    dst = {}
+    for k, t in own.items():
+        path = _jax_path(net, k)
+        if path is not None:
+            dst[path] = t
+    prefixes = {p[:i] for p in dst for i in range(1, len(p))}
+    missing = set()
+    for key, value in src.items():
+        path = _jax_path(net, key)
+        if path is None:
+            continue
+        where = '.'.join((label, *path))
+        if path in dst:
+            value = np.asarray(value, np.float32)
+            if tuple(dst[path].shape) == value.shape:
+                with torch.no_grad():
+                    dst[path].copy_(torch.from_numpy(value))
+                copied.append(where)
+            else:
+                skipped.append(where)
+            continue
+        for i in range(1, len(path) + 1):
+            if path[:i] not in prefixes and path[:i] not in dst:
+                missing.add('.'.join((label, *path[:i])))
+                break
+        else:
+            skipped.append(where)    # a leaf where the module has a subtree
+    skipped.extend(sorted(missing))
+
+
+def transfer_into_train_state(state, path: str, verbose: bool = True):
+    """SG2-ADA snapshot ``.pkl`` → a single-GAN train state: the G, D and
+    G_ema entries copied into the live mapping and synthesis, ``local_d[0]``
+    and the EMA, in place (the reference's transfer-learning resume:
+    legacy.load_network_pkl + copy_params_and_buffers into G/D/G_ema,
+    training/training_loop.py:166-172; the JAX package's
+    ``transfer_into_train_state``).  An entry whose shape differs keeps its
+    initialized value (transfer across resolutions); the printed counts are
+    the JAX function's.  Returns the state."""
+    data = load_network_pkl(path)
+    copied: list = []
+    skipped: list = []
+
+    def reference(key):
+        net = data.get(key)
+        return net['state_dict'] if (isinstance(net, dict)
+                                     and 'state_dict' in net) else None
+
+    def split(sd, prefix):
+        return {k[len(prefix):]: v for k, v in sd.items()
+                if k.startswith(prefix)}
+
+    for key, ens in (('G', state.model), ('G_ema', state.ema)):
+        sd = reference(key)
+        if sd is None:
+            continue
+        _transfer(ens.mapping, split(sd, 'mapping.'), 'mapping',
+                  f'{key}.mapping', copied, skipped)
+        _transfer(ens.local_g[0], split(sd, 'synthesis.'), 'synthesis',
+                  f'{key}.synthesis', copied, skipped)
+        if key == 'G':
+            d = reference('D')
+            if d is not None:
+                _transfer(state.model.local_d[0], d, 'd', 'D', copied,
+                          skipped)
+    if verbose:
+        print(f'transfer_into_train_state: copied {len(copied)} tensors, '
+              f'skipped {len(skipped)}')
+    return state

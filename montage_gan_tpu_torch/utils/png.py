@@ -13,9 +13,12 @@ bound with ``ctypes``, which releases the GIL during the call, so several
 threads decode at once.  A failed build raises; nothing falls back.
 ``unfilter_plain`` is the numpy version the tests hold the library to.
 
-Supported: 8-bit RGBA (colour type 6) and 8-bit RGB (colour type 2, alpha
-255), not interlaced.  Any other PNG raises with its name, colour type and
-bit depth (PIL would convert it).
+Supported: 8-bit RGBA (colour type 6), 8-bit RGB (colour type 2, alpha
+255) and 8-bit grey (colour type 0: the value in R, G and B, as PIL's
+``convert('RGB')`` repeats it), not interlaced.  Any other PNG (grey with
+alpha, palette, 16-bit, interlaced, ``tRNS``) raises with its name, colour
+type and bit depth (PIL would convert it).  ``decode_png`` gives an image in
+its own channels (1, 3 or 4), as ``np.asarray(Image.open(f))`` does.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ SOURCE = PACKAGE_DIR / 'native' / 'png_unfilter.cpp'
 BUILD_DIR = PACKAGE_DIR / 'build'
 CXX_FLAGS = ('-O3', '-std=c++17', '-shared', '-fPIC')
 SIGNATURE = b'\x89PNG\r\n\x1a\n'
-_CHANNELS = {6: 4, 2: 3}            # colour type → channels stored
+_CHANNELS = {6: 4, 2: 3, 0: 1}      # colour type → channels stored
 _BAD_LENGTH, _BAD_FILTER = 1, 16    # png_unfilter.cpp's return codes
 
 _lock = threading.Lock()
@@ -116,30 +119,46 @@ def parse(data: bytes, name: str = '<bytes>'):
         raise ValueError(
             f'{name}: unsupported PNG (colour type {colour}, bit depth '
             f'{depth}, interlace {interlace}); the reader takes 8-bit RGBA '
-            '(colour type 6) and 8-bit RGB (colour type 2), not interlaced')
+            '(colour type 6), RGB (colour type 2) and grey (colour type 0), '
+            'not interlaced')
     return height, width, _CHANNELS[colour], zlib.decompress(b''.join(idat))
 
 
-def read_png_rgba(path: str, out: Optional[np.ndarray] = None) -> np.ndarray:
-    """An 8-bit RGBA or RGB PNG as ``[H, W, 4]`` uint8 (RGB gets alpha 255),
-    written into ``out`` (C-contiguous uint8 of that shape) when given."""
-    with open(path, 'rb') as f:
-        height, width, channels, raw = parse(f.read(), path)
+def _decode(data: bytes, name: str, out: Optional[np.ndarray] = None):
+    """(``[H, W, 4]`` RGBA uint8, channels stored) of a PNG's bytes, written
+    into ``out`` when given."""
+    height, width, channels, raw = parse(data, name)
     if out is None:
         out = np.empty((height, width, 4), np.uint8)
     elif (out.shape != (height, width, 4) or out.dtype != np.uint8
           or not out.flags.c_contiguous):
-        raise ValueError(f'{path}: a {height}x{width} image does not fit '
+        raise ValueError(f'{name}: a {height}x{width} image does not fit '
                          f'an output of shape {out.shape} ({out.dtype})')
     rc = _unfilter_fn()(raw, len(raw), out.ctypes.data, height, width,
                         channels)
     if rc == _BAD_LENGTH:
-        raise ValueError(f'{path}: image data of {len(raw)} bytes, not '
+        raise ValueError(f'{name}: image data of {len(raw)} bytes, not '
                          f'{height * (width * channels + 1)}')
     if rc != 0:
-        raise ValueError(f'{path}: unknown filter type in row '
+        raise ValueError(f'{name}: unknown filter type in row '
                          f'{rc - _BAD_FILTER}')
-    return out
+    return out, channels
+
+
+def read_png_rgba(path: str, out: Optional[np.ndarray] = None) -> np.ndarray:
+    """An 8-bit RGBA, RGB or grey PNG as ``[H, W, 4]`` uint8 (RGB and grey
+    get alpha 255), written into ``out`` (C-contiguous uint8 of that shape)
+    when given."""
+    with open(path, 'rb') as f:
+        return _decode(f.read(), path, out)[0]
+
+
+def decode_png(data: bytes, name: str = '<bytes>') -> np.ndarray:
+    """A PNG's bytes as ``[H, W, C]`` uint8 in the channels it stores: 4
+    (RGBA), 3 (RGB) or 1 (grey)."""
+    rgba, channels = _decode(data, name)
+    return rgba if channels == 4 else np.ascontiguousarray(
+        rgba[..., :channels])
 
 
 def unfilter_plain(raw: bytes, height: int, width: int,
@@ -176,7 +195,9 @@ def unfilter_plain(raw: bytes, height: int, width: int,
         out[y] = cur
         prev = cur
     img = out.reshape(height, width, channels)
-    if channels == 3:
+    if channels == 1:
+        img = np.repeat(img, 3, axis=2)
+    if channels in (1, 3):
         img = np.concatenate([img, np.full((height, width, 1), 255,
                                            np.uint8)], axis=2)
     return img
@@ -208,6 +229,12 @@ def filter_rows(u8: np.ndarray) -> np.ndarray:
 def write_png(path: str, u8: np.ndarray) -> None:
     """Write an ``[H, W, C]`` uint8 array (C = 1 grey, 3 RGB, 4 RGBA) as an
     8-bit PNG with adaptive row filters (``filter_rows``)."""
+    with open(path, 'wb') as f:
+        f.write(encode_png(u8))
+
+
+def encode_png(u8: np.ndarray) -> bytes:
+    """The bytes of ``write_png``'s file."""
     if u8.ndim == 2:
         u8 = u8[..., None]
     h, w, c = u8.shape
@@ -221,9 +248,8 @@ def write_png(path: str, u8: np.ndarray) -> None:
                 + struct.pack('>I', zlib.crc32(tag + data) & 0xffffffff))
 
     header = struct.pack('>IIBBBBB', w, h, 8, colour, 0, 0, 0)
-    with open(path, 'wb') as f:
-        f.write(SIGNATURE + chunk(b'IHDR', header)
-                + chunk(b'IDAT', zlib.compress(raw, 6)) + chunk(b'IEND', b''))
+    return (SIGNATURE + chunk(b'IHDR', header)
+            + chunk(b'IDAT', zlib.compress(raw, 6)) + chunk(b'IEND', b''))
 
 
 def write_png_rgba(path: str, u8: np.ndarray) -> None:

@@ -57,13 +57,19 @@ def _as_list(tree) -> list:
     return list(tree)
 
 
-def mapping_state_dict(variables: Dict[str, Any]) -> 'OrderedDict':
+def mapping_state_dict(variables: Dict[str, Any],
+                       w_avg: bool = True) -> 'OrderedDict':
+    """A JAX mapping's variables → the port's ``MappingNetwork`` state
+    dict; ``w_avg=False`` for a network without one (the conditional D's
+    projection)."""
     params = variables['params']
     out: 'OrderedDict' = OrderedDict()
-    w_avg = variables.get('moving_stats', {}).get('w_avg')
-    if w_avg is None:  # a fresh network's w_avg is zeros
-        w_avg = np.zeros_like(np.asarray(params[_fc_names(params)[-1]]['bias']))
-    out['w_avg'] = _t(w_avg)
+    if w_avg:
+        avg = variables.get('moving_stats', {}).get('w_avg')
+        if avg is None:  # a fresh network's w_avg is zeros
+            avg = np.zeros_like(
+                np.asarray(params[_fc_names(params)[-1]]['bias']))
+        out['w_avg'] = _t(avg)
     if 'embed' in params:          # a conditional mapping's label embedding
         out['embed.weight'] = _linear_w(params['embed']['weight'])
         out['embed.bias'] = _t(params['embed']['bias'])
@@ -131,10 +137,9 @@ def discriminator_state_dict(variables: Dict[str, Any],
     """A JAX ``Discriminator``'s variables → the state dict of the port's
     ``models.discriminator.Discriminator``: blocks top-down, then the
     epilogue ``b4``, whose fc input turns from the HWC-major flatten to the
-    C-major one."""
+    C-major one; a conditional D's ``mapping`` between them, as the
+    reference registers it."""
     params = variables['params']
-    if 'mapping' in params:
-        raise NotImplementedError('the conditional D is not ported yet')
     h0, w0 = init_res
     rf = setup_filter([1, 3, 3, 1])
     out: 'OrderedDict' = OrderedDict()
@@ -145,7 +150,8 @@ def discriminator_state_dict(variables: Dict[str, Any],
             out[f'{key}.bias'] = _t(p['bias'])
         out[f'{key}.resample_filter'] = rf.clone()
 
-    blocks = sorted((b for b in params if b != 'b4'), key=lambda b: -int(b[1:]))
+    blocks = sorted((b for b in params if b not in ('b4', 'mapping')),
+                    key=lambda b: -int(b[1:]))
     for block in blocks:
         p = params[block]
         out[f'{block}.resample_filter'] = rf.clone()
@@ -154,6 +160,10 @@ def discriminator_state_dict(variables: Dict[str, Any],
         put_conv(f'{block}.conv0', p['conv0'])
         put_conv(f'{block}.conv1', p['conv1'])
         put_conv(f'{block}.skip', p['skip'], bias=False)
+    if 'mapping' in params:
+        for k, v in mapping_state_dict({'params': params['mapping']},
+                                       w_avg=False).items():
+            out[f'mapping.{k}'] = v
     p = params['b4']
     put_conv('b4.conv', p['conv'])
     w = np.asarray(p['fc']['weight'])            # [h0*w0*cin, out], HWC-major

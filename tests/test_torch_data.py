@@ -134,8 +134,7 @@ def test_png_reader_each_filter(filt, colour, tmp_path):
     np.testing.assert_array_equal(plain, ref)
 
 
-UNSUPPORTED = {'grey': ('L', {}, 'colour type 0, bit depth 8'),
-               'grey16': ('I;16', {}, 'colour type 0, bit depth 16'),
+UNSUPPORTED = {'grey16': ('I;16', {}, 'colour type 0, bit depth 16'),
                'palette': ('P', {}, 'colour type 3, bit depth 8'),
                'grey-alpha': ('LA', {}, 'colour type 4, bit depth 8'),
                'rgb-trns': ('RGB', {'transparency': (1, 2, 3)}, 'tRNS')}
@@ -151,6 +150,20 @@ def test_png_reader_rejects_other_formats(kind, tmp_path):
     with pytest.raises(ValueError, match=said) as e:
         png.read_png_rgba(path)
     assert path in str(e.value)
+
+
+def test_png_reader_reads_grey_as_pil(tmp_path):
+    """8-bit grey (colour type 0): the value in R, G and B with alpha 255,
+    as PIL's ``convert('RGBA')``; ``decode_png`` keeps its one channel."""
+    arr = np.random.RandomState(0).randint(0, 256, (9, 7)).astype(np.uint8)
+    path = str(tmp_path / 'grey.png')
+    Image.fromarray(arr, 'L').save(path)
+    native, plain = _both_readers(path)
+    ref = np.asarray(Image.open(path).convert('RGBA'))
+    np.testing.assert_array_equal(native, ref)
+    np.testing.assert_array_equal(plain, ref)
+    with open(path, 'rb') as f:
+        np.testing.assert_array_equal(png.decode_png(f.read()), arr[..., None])
 
 
 def test_png_reader_rejects_bad_filter_and_length(tmp_path):

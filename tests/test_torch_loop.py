@@ -473,16 +473,29 @@ WAITING = {'--metrics': ['--metrics', 'fid50k_fool'],
 
 
 @pytest.mark.parametrize('flag', sorted(WAITING))
-def test_train_aio_cli_flags_that_wait_raise(flag, tiny_dataset, tmp_path):
-    """A flag whose value waits for a ROADMAP item raises naming it;
-    ``--metrics`` no longer waits (the metrics are ported), and a name that
-    is no metric raises listing the valid ones."""
+def test_train_aio_cli_flags_that_wait_raise(flag, tiny_dataset, tmp_path,
+                                             monkeypatch):
+    """No flag waits any more: a name that is no metric raises listing the
+    valid ones, and an alias that is not in the cache (``MGT_CACHE_DIR``)
+    is fetched, which fails without the network as the JAX CLI's fetch
+    fails (``urlopen`` is patched: no test reaches the network); nothing is
+    written."""
+    import urllib.request
+    calls = []
+
+    def urlopen(url, timeout=None):
+        calls.append(url)
+        raise OSError('no network')
+    monkeypatch.setattr(urllib.request, 'urlopen', urlopen)
+    monkeypatch.setattr('time.sleep', lambda s: None)
+    monkeypatch.setenv('MGT_CACHE_DIR', str(tmp_path / 'cache'))
     error, match = ((ValueError, 'valid: fid50k_full') if flag == '--metrics'
-                    else (NotImplementedError, 'queue 1, item'))
+                    else (OSError, 'no network'))
     with pytest.raises(error, match=match):
         train_aio.main(['--outdir', str(tmp_path / 'runs'), '--data',
                         tiny_dataset, '--device', 'cpu', *WAITING[flag]])
     assert not os.path.exists(str(tmp_path / 'runs'))
+    assert len(calls) == (10 if flag == '--resume' else 0)
 
 
 def test_train_aio_cli_flag_parity():
@@ -499,10 +512,11 @@ def test_train_aio_cli_flag_parity():
     missing = flags - ours - set(train_aio.NOT_PORTED)
     assert not missing, missing
     assert not set(train_aio.NOT_PORTED) & ours
-    assert set(train_aio.WAITING) <= ours & flags
-    # the metrics are ported: --metrics is accepted and waits no more;
-    # --renderer-import is accepted and, as in the JAX CLI, not read
-    assert set(WAITING) - {'--metrics'} == set(train_aio.WAITING)
+    # the metrics and the resume sources are ported: --metrics and
+    # --resume are accepted and wait no more; --renderer-import is accepted
+    # and, as in the JAX CLI, not read
+    assert not train_aio.WAITING
+    assert set(WAITING) <= ours & flags
     assert '--renderer-import' in ours & flags
     assert '--renderer-import' not in train_aio.WAITING
     assert '--metrics' in ours & flags

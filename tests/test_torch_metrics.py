@@ -595,7 +595,7 @@ def _micro_snapshot(path):
 def test_calc_metrics_cli(tiny_dataset, tmp_path):
     """``calc_metrics`` on a port snapshot: the JAX record's keys in
     ``metric-<name>.jsonl`` beside it, the value of ``calc_metric`` on the
-    loaded network; a ``.pkl`` raises naming its ROADMAP item; an unknown
+    loaded network; a ``.pkl`` that is not there raises; an unknown
     metric raises with the valid names; the card is the default."""
     snap, cfg, model = _micro_snapshot(tmp_path / 'ema-snapshot-000000.pt')
     argv = ['--network', snap, '--data', tiny_dataset, '--metrics',
@@ -615,8 +615,9 @@ def test_calc_metrics_cli(tiny_dataset, tmp_path):
         extractor=tfeat.build_extractor('random', device='cpu'))
     assert record['results'] == dict(direct.results) == \
         dict(results[0].results)
-    with pytest.raises(NotImplementedError, match='queue 1, item 7'):
-        calc_metrics.main(['--network', 'net.pkl', '--data', tiny_dataset])
+    with pytest.raises(FileNotFoundError, match='net.pkl'):
+        calc_metrics.main(['--network', str(tmp_path / 'net.pkl'), '--data',
+                           tiny_dataset, '--device', 'cpu'])
     with pytest.raises(ValueError, match='valid'):
         calc_metrics.main([*argv[:5], 'fid2', '--device', 'cpu'])
     if not torch.cuda.is_available():
@@ -753,16 +754,17 @@ def test_check_weights_dropin_sha256_gate(tmp_path, monkeypatch, capsys):
 
 def test_main_dispatches_the_ported_commands(capsys):
     """``python -m montage_gan_tpu_torch <command>``: the JAX package's
-    names; the ported ones reach their CLI, the others raise naming their
-    ROADMAP item."""
+    names; every one is ported and reaches its CLI (none waits for a
+    ROADMAP item any more)."""
     from montage_gan_tpu.__main__ import cli as jax_cli
     assert set(port_main.PORTED) | set(port_main.WAITING) == \
         set(jax_cli.commands)
     assert not set(port_main.PORTED) & set(port_main.WAITING)
-    # checkpoint interop and stage 0 are ported; the single-GAN path waits
+    # checkpoint interop, stage 0 and the single-GAN path are ported
     assert {'convert-pickle', 'export-torch', 'pretrain-renderer',
-            'pretrain-stn'} <= set(port_main.PORTED)
-    assert set(port_main.WAITING) == {'train', 'run-recipe', 'dataset-tool'}
+            'pretrain-stn', 'train', 'run-recipe',
+            'dataset-tool'} <= set(port_main.PORTED)
+    assert not port_main.WAITING
     with open(os.path.join(os.path.dirname(__file__), '..',
                            'ROADMAP.md')) as f:
         roadmap = f.read()

@@ -361,4 +361,4 @@ def test_main_dispatches_the_tools(command, capsys):
         port_main.main([command, '--help'])
     assert e.value.code == 0
     assert '--device' in capsys.readouterr().out
-    assert set(port_main.WAITING.values()) == {'queue 1, item 7'}
+    assert not port_main.WAITING
