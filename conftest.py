@@ -51,6 +51,12 @@ REFERENCE = {
 }
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card and skips without one; run on the "
+                   "card by the command in tests/test_torch_up_conv.py")
+
+
 @pytest.hookimpl(tryfirst=True)
 def pytest_collection_modifyitems(config, items):
     for item in items:

@@ -199,6 +199,89 @@ def test_conv2d_resample_matches_jax(case):
     _close(out, ref, atol=ATOL_CONV)
 
 
+def _zero_stuffed_up(x, w, f, up, down, padding, flip_weight):
+    """The up path as a dense conv over the zero-inserted input: with a
+    filter and no downsampling the FIR folded into the weight (gain up²),
+    else the conv alone, then the FIR and the downsampling."""
+    kh, kw = w.shape[2:]
+    fh, fw = tup._filter_size(f)
+    px0, px1, py0, py1 = tup._parse_padding(padding)
+    px0 += (fw + up - 1) // 2
+    px1 += (fw - up) // 2
+    py0 += (fh + up - 1) // 2
+    py1 += (fh - up) // 2
+    if down > 1:
+        px0 += (fw - down + 1) // 2
+        px1 += (fw - down) // 2
+        py0 += (fh - down + 1) // 2
+        py1 += (fh - down) // 2
+    if down == 1 and f is not None:
+        wf = tconv._fold_weight_fir(w, f, flip_weight, False, gain=up ** 2)
+        xp = tup.zero_insert_pad(x, (up, up), (px0, px1, py0, py1))
+        return torch.nn.functional.conv2d(xp, wf).permute(0, 2, 3, 1)
+    wc = w if flip_weight else w.flip([2, 3])
+    xp = tup.zero_insert_pad(x, (up, up), (kw - 1, kw - 1, kh - 1, kh - 1))
+    y = torch.nn.functional.conv2d(xp, wc).permute(0, 2, 3, 1)
+    y = tup.upfirdn2d(y, f, padding=[px0 - (kw - 1), px1 - (kw - 1),
+                                     py0 - (kh - 1), py1 - (kh - 1)],
+                      gain=up ** 2)
+    return tup.upfirdn2d(y, f, down=down) if down > 1 else y
+
+
+UP_CASES = [
+    dict(k=3, h=8, padding=1, down=1, flip_weight=False),   # synthesis conv0
+    dict(k=3, h=8, padding=1, down=1, flip_weight=True),
+    dict(k=1, h=8, padding=0, down=1, flip_weight=False),
+    dict(k=3, h=7, padding=1, down=1, flip_weight=False),   # odd H
+    dict(k=3, h=8, padding=1, down=2, flip_weight=True),
+    dict(k=3, h=5, padding=[0, 2, 1, -1], down=1, flip_weight=True),
+    dict(k=2, h=6, padding=0, down=1, flip_weight=False),   # even kernel
+    dict(k=3, h=5, padding=1, down=1, flip_weight=False, up=3),
+    dict(k=3, h=6, padding=1, down=1, flip_weight=False, f=None),
+]
+
+
+@pytest.mark.parametrize('case', UP_CASES, ids=lambda c: (
+    f"k{c['k']}-h{c['h']}-up{c.get('up', 2)}-down{c['down']}"
+    f"-flip{int(c['flip_weight'])}-pad{c['padding']}"
+    f"{'-nofilter' if 'f' in c else ''}".replace(' ', '')))
+def test_conv2d_resample_up_matches_zero_stuffed(case):
+    """The up path (the folded kernel's phases over the input) equals the
+    dense conv over the zero-inserted input, float64."""
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(2, case['h'], 6, 5, generator=gen, dtype=torch.float64)
+    w = torch.randn(7, 5, case['k'], case['k'], generator=gen,
+                    dtype=torch.float64)
+    f = None if 'f' in case else tfilters.setup_filter(F2D).double()
+    kw = dict(up=case.get('up', 2), down=case['down'],
+              padding=case['padding'], flip_weight=case['flip_weight'])
+    tconv.reset()
+    out = tconv.conv2d_resample(x, w, f=f, **kw)
+    assert dict(tconv.LOWERINGS) == {'up_phases': 1}
+    ref = _zero_stuffed_up(x, w, f, **kw)
+    assert out.shape == ref.shape
+    scale = ref.abs().max().item()
+    assert (out - ref).abs().max().item() <= 1e-5 * scale
+
+
+def test_conv2d_resample_up_gradgradcheck():
+    """Orders 1 and 2 of the up path (path-length regularization's double
+    backward), float64, against finite differences."""
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randn(1, 3, 4, 2, generator=gen, dtype=torch.float64,
+                    requires_grad=True)
+    w = torch.randn(3, 2, 3, 3, generator=gen, dtype=torch.float64,
+                    requires_grad=True)
+    f = tfilters.setup_filter(F2D).double()
+
+    def up(x, w):
+        return tconv.conv2d_resample(x, w, f=f, up=2, padding=1,
+                                     flip_weight=False)
+
+    assert torch.autograd.gradcheck(up, (x, w))
+    assert torch.autograd.gradgradcheck(up, (x, w))
+
+
 @pytest.mark.parametrize('up,demodulate', [(1, True), (2, True), (1, False)])
 def test_modulated_conv2d_matches_jax(up, demodulate):
     rng = np.random.RandomState(4)
